@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one NVIDIA GPU: build -> search_stream,
-and the hybrid rerank path search_rerank.
+the hybrid rerank path search_rerank, and the xla_rank, fused_dv and
+doc-range split serving paths.
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -16,13 +17,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (kb = 0), missing slots, rem tails, skipped blocks, duplicate rows
    (ties), queries with fewer than k hits, winners crowded into one
    thread's positions (the large-k refill), an empty segment and several
-   buckets. The rerank dots: random int8 tables at dim {64, 256} and
-   K {16, 64, 128}, with dead (-1) and repeated gids. Results must be
+   buckets; its dv load stage on the same plans over the interleaved
+   plane. Its doc-limit (dlim) load stage: doc-range pieces from the
+   device quantile tables (first rows that start below d_lo, ranges with
+   no docs), and arbitrary limits (empty, touching 0 and n_docs), both
+   key widths and both region kinds; the merged pieces must also equal
+   the unsplit plain scorer. The rank-only kernel: block-sorted rows of
+   C 1,024 to 131,072 pairs (shared memory and workspace), block {256,
+   1024}, k in {1, 10, 16, 17, 64, 128}, s in {1, 8, 32}, zero
+   contributions, an empty query, a query with fewer than k hits, and
+   crowded winners. The rerank dots: random int8 tables at dim {64, 256}
+   and K {16, 64, 128}, with dead (-1) and repeated gids. Results must be
    bit-identical.
 3. Parity on the card: SearchEngine(device="cuda") equals the frozen CPU
-   oracle in ids and integer scores (bm25 and tfidf, k up to 200), and
-   its search_rerank equals the same call on a device="cpu" engine built
-   from the same docs (two segments, one of them empty-vocabulary).
+   oracle in ids and integer scores (bm25 and tfidf, k up to 200), in
+   the default mode and in each of scorer "xla_rank", scorer "fused_dv"
+   and split_rows 2 (every real query splits; three segments, one of
+   them empty-vocabulary), and its search_rerank equals the same call
+   on a device="cpu" engine built from the same docs (two segments, one
+   of them empty-vocabulary).
 4. The main path at full size: a 1,000,000-doc bm25 index (200k-term
    Zipf vocabulary, 40 tokens per doc on average) built through
    SearchEngine.build, then search_stream over 4 batches of 16,384
@@ -43,6 +56,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and one batch's dots are timed as kernel, plain version and one
    float32 torch.bmm over the gathered candidates (the yardstick; the
    port never calls it).
+6. The xla_rank, fused_dv and split paths at full size, on phase 4's
+   index and batches: for each of scorer "xla_rank", scorer "fused_dv"
+   and scorer "fused" with split_rows 128, search_stream's ids and scores
+   for all queries must equal phase 4's, and the path's kernel (the
+   rank-only kernel, the dv load stage, the dlim load stage) must have
+   launched. Serving q/s is the median of 5 more passes; one batch's
+   buckets are compared in full against the plain version and timed as
+   the median of 5 warm runs. Also reported: the peak device memory over
+   the xla_rank pass, the dv planes' bytes, the split pass's pieces and
+   workspace buckets, and per path (and for phase 4's run) the median
+   host-clock ms a batch spends in the engine's dispatch (planning, H2D,
+   enqueue) and collect (D2H wait, assembly, merges).
 
 stdout ends with the kernels' JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line. Progress goes
@@ -69,6 +94,13 @@ KERNELS = {
     "rerank_dots": (
         "document_search_engine_tpu_torch/csrc/rerank_dots.cu",
         "document_search_engine_tpu/ops/rerank.py:149"),
+    "rank_only": (
+        "document_search_engine_tpu_torch/csrc/rank_only.cu",
+        "document_search_engine_tpu/ops/rank_pallas.py:405"),
+    "fused_search_dv": (
+        FUSED_SOURCE, "document_search_engine_tpu/ops/fused_dv.py:119"),
+    "fused_search_split": (
+        FUSED_SOURCE, "document_search_engine_tpu/ops/fused_pallas.py:395"),
 }
 # the card's peaks for bound_ms (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -84,6 +116,12 @@ SERVING_PASSES = 5  # timed search_stream passes after the counted one
 TIMED_REPS = 5  # event-timed repetitions per version, after one warm run
 # the rerank path (phase 5): search_rerank's defaults
 RERANK_K, CANDIDATES, DIM = 10, 64, 256
+# phase 6: (scorer, split_rows, kernels-line entry of the path's kernel)
+PATHS = (
+    ("xla_rank", None, "rank_only"),
+    ("fused_dv", None, "fused_search_dv"),
+    ("fused", 128, "fused_search_split"),
+)
 
 
 def log(msg: str) -> None:
@@ -156,21 +194,28 @@ def fused_name(k: int) -> str:
 
 def check_fused(device, diffs, d2, v2, tabs, nb, block, s, k, n_docs, rc,
                 kb, what) -> int:
-    """One fused_search call against the plain version; returns hits."""
+    """One fused_search call, and one fused_search_dv call over the
+    interleaved plane of the same planes, each against its plain
+    version; returns hits."""
     import torch
 
     from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops import fused_dv as FD
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    got = F.fused_search(
-        t(d2), t(v2), *tabs, n_blocks=nb, block=block, s=s, k=k,
-        n_docs=n_docs, scale=SCALE, clip=CLIP, r_c=rc, key_bits=kb,
-    )
+    kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs,
+              scale=SCALE, clip=CLIP)
+    got = F.fused_search(t(d2), t(v2), *tabs, r_c=rc, key_bits=kb, **kw)
     want = plain_on(device, d2, v2, *tabs[:3], nb, block, s, k, n_docs)
+    dv = FD.interleave_planes(t(d2), t(v2))
+    got_dv = FD.fused_search_dv(dv, *tabs, r_c=rc, key_bits=kb, **kw)
+    want_dv = FD.fused_search_dv_plain(dv, *tabs[:3], **kw)
     torch.cuda.synchronize()
     diff = diffs[fused_name(k)]
     diff.check(got[0], want[0], what + " vals")
     diff.check(got[1], want[1], what + " docs")
+    diffs["fused_search_dv"].check(got_dv[0], want_dv[0], what + " dv vals")
+    diffs["fused_search_dv"].check(got_dv[1], want_dv[1], what + " dv docs")
     return int((got[0] > 0).sum())
 
 
@@ -285,18 +330,229 @@ def phase_kernels(device, diffs, seed: int = 0) -> int:
     sr, rm, ab, dst = F.expand_plan_tables(
         t32(np.zeros(0)), t32(np.zeros(1)), rows, cb, 4, 1024
     )
+    from document_search_engine_tpu_torch.ops import fused_dv as FD
+
+    dv_e = FD.interleave_planes(d_e, d_e)
     for k in (10, 64):
-        got = F.fused_search(
-            d_e, d_e, sr, rm, ab, dst, n_blocks=4, block=1024, s=4, k=k,
-            n_docs=0, scale=SCALE, clip=CLIP, r_c=8, key_bits=2,
-        )
-        diff = diffs[fused_name(k)]
-        diff.check(got[0], torch.full_like(got[0], -1),
-                   f"empty segment k={k} vals")
-        diff.check(got[1], torch.full_like(got[1], -1),
-                   f"empty segment k={k} docs")
+        kw = dict(n_blocks=4, block=1024, s=4, k=k, n_docs=0, scale=SCALE,
+                  clip=CLIP, r_c=8, key_bits=2)
+        for name, got in (
+            (fused_name(k), F.fused_search(d_e, d_e, sr, rm, ab, dst, **kw)),
+            ("fused_search_dv", FD.fused_search_dv(dv_e, sr, rm, ab, dst,
+                                                   **kw)),
+        ):
+            diffs[name].check(got[0], torch.full_like(got[0], -1),
+                              f"empty segment k={k} {name} vals")
+            diffs[name].check(got[1], torch.full_like(got[1], -1),
+                              f"empty segment k={k} {name} docs")
         n_checked += 1
     return n_checked
+
+
+def block_sorted_rows(rng, nq, n_blocks, block, n_docs, s, fill_frac=0.7):
+    """(d_key, ci) (nq, n_blocks * block) int32 rows in the layout the
+    rank-only kernel takes (tests/test_rank_pallas.py
+    make_block_sorted_rows): every aligned `block`-run doc-ascending with
+    a sentinel tail, a doc at most once per run, only the first s runs
+    filled, about a tenth of the contributions zero."""
+    c = n_blocks * block
+    d = np.full((nq, c), n_docs, np.int32)
+    ci = np.zeros((nq, c), np.int32)
+    for q in range(nq):
+        for b in range(min(n_blocks, s)):
+            n_valid = int(rng.integers(0, int(block * fill_frac) + 1))
+            docs = np.sort(rng.choice(n_docs, size=min(n_valid, n_docs),
+                                      replace=False).astype(np.int32))
+            lo = b * block
+            d[q, lo : lo + len(docs)] = docs
+            vals = rng.integers(0, 50, len(docs)).astype(np.int32)
+            vals[rng.random(len(docs)) < 0.1] = 0
+            ci[q, lo : lo + len(docs)] = vals
+    return d, ci
+
+
+def phase_rank(device, diff, seed: int = 3) -> int:
+    """The rank-only kernel vs packed.rank_candidates on block-sorted
+    rows; returns cases checked."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.packed import rank_candidates
+    from document_search_engine_tpu_torch.ops.rank import (
+        rank_candidates_kernel,
+    )
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n = 0
+
+    def check(d, ci, block, s, k, n_docs, what):
+        got = rank_candidates_kernel(t(d), t(ci), 0, block=block, s=s, k=k,
+                                     n_docs=n_docs)
+        want = rank_candidates(t(d), t(ci), 0, s, k, n_docs)
+        torch.cuda.synchronize()
+        diff.check(got[0], want[0], what + " vals")
+        diff.check(got[1], want[1], what + " gids")
+        return int((got[0] > 0).sum())
+
+    # (nq, n_blocks, block, s, n_docs): C from 1,024 to 131,072 pairs;
+    # the region is in shared memory up to C 16,384, else in workspace
+    for nq, nb, block, s, n_docs in (
+        (16, 4, 256, 4, 500),
+        (16, 8, 256, 8, 120),  # few docs: many repeated across runs
+        (8, 16, 1024, 8, 3000),  # C 16,384, the largest in shared memory
+        (8, 32, 1024, 32, 50000),
+        (4, 128, 1024, 32, 200000),  # C 131,072
+        (4, 512, 256, 8, 100000),  # C 131,072 in runs of 256
+        (8, 64, 256, 1, 1000),  # s = 1
+    ):
+        d, ci = block_sorted_rows(rng, nq, nb, block, n_docs, s)
+        d[0], ci[0] = n_docs, 0  # an empty query
+        d[1], ci[1] = n_docs, 0  # a query of 5 docs: fewer than k hits
+        d[1, :5], ci[1, :5] = np.arange(5), 7
+        for k in (1, 10, 16, 17, 64, 128):
+            what = (f"rank C={nb * block} block={block} s={s} k={k} "
+                    f"n_docs={n_docs}")
+            hits = check(d, ci, block, s, k, n_docs, what)
+            n += 1
+        log(f"rank kernel == plain: C={nb * block} block={block} s={s}, "
+            f"k in (1, 10, 16, 17, 64, 128), {hits} hits at k=128")
+    # winners crowded into one thread: one run of docs 0..m-1 at their
+    # positions, the docs p % 512 == 0 scoring highest, so thread 0 owns
+    # them all (C 16,384: shared memory; 32,768: workspace)
+    for c, m, k in ((16384, 12000, 64), (32768, 20000, 128),
+                    (32768, 20000, 17)):
+        d = np.full((2, c), m, np.int32)
+        ci = np.zeros((2, c), np.int32)
+        d[:, :m] = np.arange(m)
+        ci[:, :m] = rng.integers(1, 5, (2, m))
+        ci[:, :m:512] = 1000
+        what = f"rank crowded winners C={c} k={k}"
+        hits = check(d, ci, c, 1, k, m, what)
+        log(f"rank kernel == plain: {what}, {hits} hits")
+        n += 1
+    return n
+
+
+def phase_split(device, diff, seed: int = 2) -> int:
+    """The fused kernel's doc-limit load stage vs search_packed_tables
+    with the same dlim; returns cases checked."""
+    import torch
+
+    from document_search_engine_tpu_torch.index import builder as B
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.packed import (
+        search_packed_tables,
+    )
+    from document_search_engine_tpu_torch.ops.schedule import _piece_lens
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    p = B.SPLIT_QUANTILES
+    n, n_head = 0, 0
+
+    def check(d2t, v2t, tabs, dlim, nb, block, s, k, n_docs, kb, what):
+        kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs)
+        out = {}
+        for rc in (tight_rc(tabs[1], block), 2 * tight_rc(tabs[1], block)):
+            got = F.fused_search(d2t, v2t, *tabs, scale=SCALE, clip=CLIP,
+                                 r_c=rc, key_bits=kb, dlim=dlim, **kw)
+            want = search_packed_tables(d2t, v2t, *tabs[:3], SCALE, CLIP, 0,
+                                        dlim=dlim, **kw)
+            torch.cuda.synchronize()
+            diff.check(got[0], want[0], f"{what} r_c={rc} vals")
+            diff.check(got[1], want[1], f"{what} r_c={rc} docs")
+            out = got
+        return out
+
+    # (n_terms, n_docs, max_len, nq, s, block, k, kb)
+    for n_terms, n_docs, max_len, nq, s, block, k, kbm in (
+        (40, 3000, 900, 32, 4, 512, 10, "auto"),
+        (40, 3000, 900, 32, 4, 512, 64, "zero"),
+        (30, 50000, 6000, 16, 8, 4096, 16, "auto"),  # r_c > 128 rows
+        (30, 50000, 6000, 16, 8, 4096, 128, "zero"),
+        (12, 2_000_000, 400, 32, 4, 1024, 10, "auto"),  # docs in 1/400
+        (20, 1_000_000_000, 400, 16, 4, 1024, 17, "zero"),
+    ):
+        indptr, row_start, d2, v2 = aligned_csr(
+            rng, n_terms, min(n_docs, 10 * max_len + 1000), max_len, n_docs
+        )
+        d2t, v2t = t(d2), t(v2)
+        offs_d = B.device_row_doc_quantiles(d2t, t(indptr), t(row_start), p,
+                                            n_docs)
+        flat = d2.reshape(-1)
+        post_doc = np.concatenate([
+            flat[row_start[i] : row_start[i] + indptr[i + 1] - indptr[i]]
+            for i in range(n_terms)
+        ])
+        offs_h = B.host_row_doc_quantiles(indptr, post_doc, p, n_docs)
+        np.testing.assert_array_equal(offs_d.cpu().numpy(), offs_h,
+                                      "device quantiles")
+        rows = rng.integers(0, n_terms, (nq, s)).astype(np.int32)
+        rows[:, -1] = rows[:, 0]  # equal docs from two slots: ties
+        coeff = (rng.random((nq, s)) * 1.5 + 0.05).astype(np.float32)
+        coeff[rng.random((nq, s)) < 0.3] = 0.0
+        coeff[0] = 0.0
+        lens = np.where(coeff > 0, indptr[rows + 1] - indptr[rows], 0)
+        kb = F.key_bits_for(s, n_docs) if kbm == "auto" else 0
+        # the unsplit plan: the yardstick for the merged pieces, and the
+        # plan for arbitrary limits
+        nb0 = 1 << int(np.ceil(np.log2(max(int(
+            (-(-lens // block)).sum(1).max()), 1))))
+        tabs0 = F.expand_plan_tables(t(row_start), t(indptr), t(rows),
+                                     t(coeff.view(np.int32)), nb0, block)
+        whole = search_packed_tables(d2t, v2t, *tabs0[:3], SCALE, CLIP, 0,
+                                     n_blocks=nb0, block=block, s=s, k=k,
+                                     n_docs=n_docs)
+        whole = [x.cpu().numpy() for x in whole]
+        for m in (2, 4, 8):
+            qidx = np.repeat(np.arange(nq), m)
+            pno = np.tile(np.arange(m), nq)
+            cols = np.stack([pno * p // m, (pno + 1) * p // m], 1)
+            cols = cols.astype(np.int32)
+            lens_p = _piece_lens(lens, rows, offs_h, qidx, cols)
+            nb = 1 << int(np.ceil(np.log2(max(int(
+                (-(-lens_p // block)).sum(1).max()), 1))))
+            tabs = F.expand_plan_tables(
+                t(row_start), t(indptr), t(rows[qidx]),
+                t(coeff[qidx].view(np.int32)), nb, block,
+                offs_dev=offs_d, cols=t(cols),
+            )
+            dlim = t((cols.astype(np.int64) * n_docs // p).astype(np.int32)
+                     .reshape(-1, 1, 2))
+            lo = offs_h[rows[qidx], cols[:, 0:1]]
+            n_head += int(((lo % 128 != 0) & (coeff[qidx] > 0)).sum())
+            what = f"pieces m={m} n_docs={n_docs} block={block} k={k} kb={kb}"
+            got = check(d2t, v2t, tabs, dlim, nb, block, s, k, n_docs, kb,
+                        what)
+            # the merged pieces equal the unsplit ranking
+            pv = got[0].cpu().numpy().reshape(nq, m * k)
+            pd = got[1].cpu().numpy().reshape(nq, m * k)
+            order = np.lexsort((pd, -pv.astype(np.int64)), axis=-1)[:, :k]
+            mv = np.take_along_axis(pv, order, 1)
+            md = np.take_along_axis(pd, order, 1)
+            np.testing.assert_array_equal(np.where(mv > 0, mv, -1), whole[0],
+                                          what + " merged vals")
+            np.testing.assert_array_equal(np.where(mv > 0, md, -1), whole[1],
+                                          what + " merged docs")
+            log(f"dlim kernel == plain: {what}, merged == unsplit")
+            n += 1
+        # arbitrary limits on the unsplit plan: empty, from 0, to n_docs,
+        # the whole range, and random ranges
+        top = int(d2[d2 < n_docs].max()) + 1
+        lim = np.sort(rng.integers(0, top, (nq, 2)), axis=1)
+        lim[1] = (5, 5)
+        lim[2] = (0, top // 3)
+        lim[3] = (top // 3, n_docs)
+        lim[4] = (0, n_docs)
+        what = f"arbitrary limits n_docs={n_docs} block={block} k={k} kb={kb}"
+        check(d2t, v2t, tabs0, t(lim.astype(np.int32).reshape(nq, 1, 2)),
+              nb0, block, s, k, n_docs, kb, what)
+        log(f"dlim kernel == plain: {what}")
+        n += 1
+    if n_head == 0:
+        raise AssertionError("no piece started below its d_lo")
+    log(f"dlim: {n_head} piece slots start inside a 128-record row")
+    return n
 
 
 def phase_dots(device, diff: Diff, seed: int = 1) -> int:
@@ -397,6 +653,36 @@ def phase_oracle(device) -> int:
                 np.concatenate([g[1] for g in got]), o_sc, "stream scores")
             log(f"oracle parity: {kind}, {n_docs} docs, 2 segments, "
                 f"k in (1, 10, 16, 17, 64, 128, 200) and search_stream")
+            # the three further paths over three segments, one of them
+            # empty-vocabulary; split_rows 2 splits every real query
+            half = n_docs // 2
+            parts = (docs[:half], docs[half:], ["", "!!! ???"])
+            ora3 = OracleEngine(cfg)
+            for part in parts:
+                ora3.add_docs(part)
+            ks = (1, 10, 16, 17, 64, 128, 200)
+            want3 = {k: ora3.search(queries, k=k) for k in ks}
+            for scorer, split in (("xla_rank", None), ("fused_dv", None),
+                                  ("fused", 2)):
+                e3 = SearchEngine(cfg, device=device)
+                e3.scorer, e3.split_rows = scorer, split
+                for part in parts:
+                    e3.add_docs(part)
+                for k in ks:
+                    got = e3.search(queries, k=k)
+                    what = f"{kind} {scorer} split={split} k={k}"
+                    np.testing.assert_array_equal(got[0], want3[k][0], what)
+                    np.testing.assert_array_equal(got[1], want3[k][1], what)
+                    n += 1
+                got = list(e3.search_stream(
+                    [queries[:7], [], queries[7:]], k=10))
+                for i, name in ((0, "ids"), (1, "scores")):
+                    np.testing.assert_array_equal(
+                        np.concatenate([g[i] for g in got]), want3[10][i],
+                        f"{kind} {scorer} split={split} stream {name}")
+                log(f"oracle parity: {kind}, {n_docs} docs, 3 segments, "
+                    f"scorer {scorer} split_rows {split}, k up to 200 and "
+                    f"search_stream")
             # rerank: a second segment whose docs tokenize to nothing
             engines = [SearchEngine(cfg, device=dev) for dev in (device, "cpu")]
             for e in engines:
@@ -447,7 +733,10 @@ def make_batches(df_by_row, tokens_by_row, nq, tpq, n_batches, seed=7):
 
 
 def bucket_calls(captured):
-    """Per bucket of one captured _batch_step: the kernel's arguments."""
+    """Per bucket of one captured _batch_step: (segment, plan tables,
+    the kernel's keyword arguments, dlim or None, dv plane or None)."""
+    import torch
+
     from document_search_engine_tpu_torch.ops.fused import (
         expand_plan_tables,
         key_bits_for,
@@ -455,41 +744,61 @@ def bucket_calls(captured):
 
     segments, rows_cat, cbits_cat = captured["args"]
     kw = captured["kw"]
+    split_p = kw.get("split_p", 0)
+    dv_planes = kw.get("dv_planes")
     calls, off = [], 0
-    for (n_docs, _base, seg), (_nd, s, buckets) in zip(segments, kw["plan"]):
+    for si, ((n_docs, _base, seg), (_nd, s, buckets)) in enumerate(
+        zip(segments, kw["plan"])
+    ):
         for n_blocks, block, bq, r_c in buckets:
+            cols = dlim = None
+            if split_p:
+                cols = kw["cols_cat"][off : off + bq]
+                dlim = ((cols.long() * n_docs) // split_p).to(
+                    torch.int32).reshape(bq, 1, 2)
             tabs = expand_plan_tables(
                 seg.row_start, seg.indptr, rows_cat[off : off + bq],
                 cbits_cat[off : off + bq], n_blocks, block,
+                offs_dev=kw["offs_devs"][si] if split_p else None, cols=cols,
             )
             off += bq
             calls.append((seg, tabs, dict(
                 n_blocks=n_blocks, block=block, s=s, k=kw["k"],
                 n_docs=n_docs, scale=kw["scale"], clip=kw["clip"], r_c=r_c,
                 key_bits=key_bits_for(s, n_docs),
-            )))
+            ), dlim, None if dv_planes is None else dv_planes[si]))
     return calls
 
 
-def plain_chunks(seg, tabs, p, chunk_elems=64 << 20):
+def plain_chunks(seg, tabs, p, dlim=None, dv=None, chunk_elems=64 << 20):
     """The plain version over a bucket, in query chunks whose
-    (rows, n_blocks * block) buffers stay ~64M elements."""
+    (rows, n_blocks * block) buffers stay ~64M elements: the fused
+    kernel's (with dlim when given), or the dv load stage's."""
     import torch
 
+    from document_search_engine_tpu_torch.ops.fused_dv import (
+        fused_search_dv_plain,
+    )
     from document_search_engine_tpu_torch.ops.packed import (
         search_packed_tables,
     )
 
     nq = tabs[0].shape[0]
     step = max(1, chunk_elems // (p["n_blocks"] * p["block"]))
+    kw = dict(n_blocks=p["n_blocks"], block=p["block"], s=p["s"], k=p["k"],
+              n_docs=p["n_docs"])
     vs, ds = [], []
     for lo in range(0, nq, step):
         sr, rm, ab = (x[lo : lo + step] for x in tabs[:3])
-        v, d = search_packed_tables(
-            seg.post_doc, seg.post_val, sr, rm, ab, p["scale"], p["clip"],
-            0, n_blocks=p["n_blocks"], block=p["block"], s=p["s"],
-            k=p["k"], n_docs=p["n_docs"],
-        )
+        if dv is not None:
+            v, d = fused_search_dv_plain(dv, sr, rm, ab, scale=p["scale"],
+                                         clip=p["clip"], **kw)
+        else:
+            v, d = search_packed_tables(
+                seg.post_doc, seg.post_val, sr, rm, ab, p["scale"],
+                p["clip"], 0, dlim=None if dlim is None else
+                dlim[lo : lo + step], **kw,
+            )
         vs.append(v)
         ds.append(d)
     return torch.cat(vs), torch.cat(ds)
@@ -530,6 +839,35 @@ def sample_cells(rng, cell_list, nq, sample):
     return pick, len(live)
 
 
+def host_timers(eng):
+    """Wraps eng._dispatch and eng._collect so that each call records its
+    host-clock ms (the dispatch: planning, H2D and enqueue; the collect:
+    the D2H wait and assembly) and each dispatch its future. Returns
+    (record, restore)."""
+    rec = {"dispatch_ms": [], "collect_ms": [], "futs": []}
+    dispatch, collect = eng._dispatch, eng._collect
+
+    def timed_dispatch(*a, **kw):
+        t0 = time.perf_counter()
+        fut = dispatch(*a, **kw)
+        rec["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["futs"].append(fut)
+        return fut
+
+    def timed_collect(fut):
+        t0 = time.perf_counter()
+        out = collect(fut)
+        rec["collect_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._dispatch, eng._collect = timed_dispatch, timed_collect
+
+    def restore():
+        eng._dispatch, eng._collect = dispatch, collect
+
+    return rec, restore
+
+
 def recording_dispatch(eng, cells):
     """Wraps eng._dispatch to record each batch's layout cells (segment
     0's [(query indices, bq)]); returns the original to restore."""
@@ -546,31 +884,50 @@ def recording_dispatch(eng, cells):
 
 def fused_bound(calls):
     """bound_ms of the fused kernel over one batch's buckets: each real
-    posting's doc and value (8 B), the four plan tables and the outputs
-    move once through device memory; the two f32 multiplies per posting
-    at the card's f32 rate. Returns (bound_ms, bound_by, postings)."""
+    posting's doc and value (8 B), the four plan tables (and the doc
+    limits) and the outputs move once through device memory; the two f32
+    multiplies per posting at the card's f32 rate. The dv layout computes
+    the same function over the same postings, so it is counted the same
+    way: its padding lanes are the layout's cost, not the function's.
+    Returns (bound_ms, bound_by, postings)."""
     import torch
 
     bytes_, post = 0, 0
-    for _seg, tabs, p in calls:
+    for _seg, tabs, p, dlim, _dv in calls:
         sr, rm = tabs[0], tabs[1]
         # real postings the plan reads; skipped blocks read none
-        valid = int(torch.where(sr >= 0, rm.clamp(0, p["block"]),
-                                torch.zeros_like(rm)).sum())
-        post += valid
-        bytes_ += valid * 8 + 4 * sr.numel() * 4 + sr.shape[0] * p["k"] * 8
+        valid = torch.where(sr >= 0, rm.clamp(0, p["block"]),
+                            torch.zeros_like(rm))
+        n_valid = int(valid.sum())
+        post += n_valid
+        bytes_ += n_valid * 8
+        bytes_ += 4 * sr.numel() * 4 + sr.shape[0] * p["k"] * 8
+        if dlim is not None:
+            bytes_ += dlim.numel() * 4
     t_bytes = bytes_ / HBM_BYTES_PER_S
     t_ops = 2 * post / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", post)
 
 
-def time_batch_buckets(eng, batch, k, diff, res, key):
-    """One batch's buckets at k, captured from a dispatch: the fused
-    kernel against its plain version in full, each timed as the median
-    of TIMED_REPS warm runs; the bound from the same inputs."""
+def rank_bound(packed, k):
+    """bound_ms of the rank-only kernel over one batch's buckets: the
+    packed (nq, C) int32 doc keys and contributions read once and the
+    (nq, k) outputs written once; one int32 add per candidate (the run
+    sums) at the f32 CUDA-core rate (the peak table has no int32 row).
+    Returns (bound_ms, bound_by, candidates)."""
+    cand = sum(int(d.numel()) for d, _ci, _p in packed)
+    rows = sum(int(d.shape[0]) for d, _ci, _p in packed)
+    t_bytes = (cand * 8 + rows * k * 8) / HBM_BYTES_PER_S
+    t_ops = cand / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", cand)
+
+
+def capture_batch(eng, batch, k):
+    """Runs one batch through eng and returns its _batch_step's
+    arguments."""
     from document_search_engine_tpu_torch.engine import engine as engine_mod
-    from document_search_engine_tpu_torch.ops import fused as F
 
     captured = {}
     step = engine_mod._batch_step
@@ -586,37 +943,102 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
         eng._collect(eng._dispatch(slot_h, coeff, k, rows_g, found_g))
     finally:
         engine_mod._batch_step = step
-    calls = bucket_calls(captured)
-    out = {"k": k}
+    return captured
+
+
+def time_batch_buckets(eng, batch, k, diff, res, key):
+    """One batch's buckets at k, captured from a dispatch in the
+    engine's current mode: the path's kernel (the fused kernel, its dlim
+    or dv load stage, or the rank-only kernel) against its plain version
+    in full, each timed as the median of TIMED_REPS warm runs; the bound
+    from the same inputs."""
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.fused_dv import fused_search_dv
+    from document_search_engine_tpu_torch.ops.packed import pack_tables
+    from document_search_engine_tpu_torch.ops.rank import (
+        rank_candidates_kernel,
+    )
+
+    calls = bucket_calls(capture_batch(eng, batch, k))
+    out = {"k": k, "scorer": eng.scorer_mode, "split_rows": eng.split_rows}
     out["buckets"] = [
-        [int(t[0].shape[0]), p["n_blocks"], p["r_c"]] for _s, t, p in calls
+        [int(c[1][0].shape[0]), c[2]["n_blocks"], c[2]["block"], c[2]["r_c"]]
+        for c in calls
     ]
-    smem = F._lib().dse_smem_region_bytes()
-    out["max_workspace_bytes"] = max(
-        (t[0].shape[0] * p["r_c"] * 128 * 8 for _s, t, p in calls
-         if p["r_c"] * 128 * 8 > smem), default=0)
+    if eng.scorer_mode == "xla_rank":
+        # the plain pack (on the path, timed apart), then the rank kernel
+        # against packed.rank_candidates on the packed buffers
+        def pack_all():
+            return [(*pack_tables(s.post_doc, s.post_val, *t[:3],
+                                  p["scale"], p["clip"], p["n_blocks"],
+                                  p["block"], p["n_docs"]), p)
+                    for s, t, p, _dl, _dv in calls]
 
-    def run_kernel():
-        return [F.fused_search(s.post_doc, s.post_val, *t, **p)
-                for s, t, p in calls]
+        packed, out["pack_ms"], out["pack_ms_reps"] = timed(pack_all)
+        out["max_workspace_bytes"] = max(
+            (d.numel() * 8 for d, _ci, _p in packed
+             if d.shape[1] * 8 > F._lib().dse_smem_region_bytes()), default=0)
 
+        def run_kernel():
+            return [rank_candidates_kernel(d, ci, 0, block=p["block"],
+                                           s=p["s"], k=p["k"],
+                                           n_docs=p["n_docs"])
+                    for d, ci, p in packed]
+
+        def run_plain():
+            return [rank_chunks(d, ci, p) for d, ci, p in packed]
+
+        out["bound_ms"], out["bound_by"], out["candidates"] = rank_bound(
+            packed, k)
+    else:
+        smem = F._lib().dse_smem_region_bytes()
+        out["max_workspace_bytes"] = max(
+            (c[1][0].shape[0] * c[2]["r_c"] * 128 * 8 for c in calls
+             if c[2]["r_c"] * 128 * 8 > smem), default=0)
+
+        def run_kernel():
+            return [
+                fused_search_dv(dv, *t, **p) if dv is not None else
+                F.fused_search(s.post_doc, s.post_val, *t, dlim=dl, **p)
+                for s, t, p, dl, dv in calls
+            ]
+
+        def run_plain():
+            return [plain_chunks(s, t, p, dl, dv)
+                    for s, t, p, dl, dv in calls]
+
+        out["bound_ms"], out["bound_by"], out["real_postings"] = (
+            fused_bound(calls))
     got, out["kernel_ms"], out["kernel_ms_reps"] = timed(run_kernel)
-    want, out["plain_ms"], out["plain_ms_reps"] = timed(
-        lambda: [plain_chunks(s, t, p) for s, t, p in calls])
+    want, out["plain_ms"], out["plain_ms_reps"] = timed(run_plain)
     for i, ((gv, gd), (wv, wd)) in enumerate(zip(got, want)):
         diff.check(gv, wv, f"{key} bucket {i} vals")
         diff.check(gd, wd, f"{key} bucket {i} docs")
-    out["bound_ms"], out["bound_by"], out["real_postings"] = fused_bound(calls)
     log(f"{key}: one {len(batch)}-query batch at k={k}, {len(calls)} "
         f"buckets, median of {TIMED_REPS} warm runs: kernel "
         f"{out['kernel_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
-        f"bound {out['bound_ms']:.4f} ms ({out['real_postings']} postings), "
-        f"bit-identical; largest workspace {out['max_workspace_bytes']} B")
+        f"bound {out['bound_ms']:.4f} ms, bit-identical; largest "
+        f"workspace {out['max_workspace_bytes']} B")
     res[key] = out
 
 
+def rank_chunks(d_key, ci, p, chunk_elems=64 << 20):
+    """packed.rank_candidates over one bucket's packed buffers, in query
+    chunks of ~64M elements."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.packed import rank_candidates
+
+    step = max(1, chunk_elems // d_key.shape[1])
+    parts = [rank_candidates(d_key[lo : lo + step], ci[lo : lo + step], 0,
+                             p["s"], p["k"], p["n_docs"])
+             for lo in range(0, d_key.shape[0], step)]
+    return torch.cat([v for v, _g in parts]), torch.cat([g for _v, g in parts])
+
+
 def phase_main(device, diffs, sample=1024, seed=0):
-    """Phase 4; returns (results, engine, query batches)."""
+    """Phase 4; returns (results, engine, query batches, the counted
+    run's (ids, scores) per batch)."""
     import torch
 
     from document_search_engine_tpu_torch import (
@@ -670,8 +1092,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     res["warmup_s"] = time.perf_counter() - t0
 
     # the counted main-path run; cell membership recorded per batch
-    cells = []
-    dispatch = recording_dispatch(eng, cells)
+    rec, restore = host_timers(eng)
     F.fused_search.launches = 0
     F.fused_search.launches_large_k = 0
     t0 = time.perf_counter()
@@ -680,12 +1101,17 @@ def phase_main(device, diffs, sample=1024, seed=0):
     dt = time.perf_counter() - t0
     res["launches"] = F.fused_search.launches
     res["launches_large_k"] = F.fused_search.launches_large_k
-    eng._dispatch = dispatch
+    restore()
+    cells = [f[1][0] for f in rec["futs"]]
+    res["dispatch_ms"] = float(np.median(rec["dispatch_ms"]))
+    res["collect_ms"] = float(np.median(rec["collect_ms"]))
     res["serving_qps_counted_pass"] = nq * n_batches / dt
     res["layout"] = eng.plan_cache.stats()
     log(f"search_stream: {nq * n_batches} queries in {dt:.3f}s = "
         f"{res['serving_qps_counted_pass']:.1f} q/s, {res['launches']} "
-        f"kernel launches, {res['layout']}")
+        f"kernel launches, {res['layout']}; median ms a batch on the "
+        f"host: dispatch {res['dispatch_ms']:.2f}, collect "
+        f"{res['collect_ms']:.2f}")
     if res["launches"] <= 0:
         raise AssertionError("the main path launched no fused_search kernel")
     # each pass is a short window that includes the depth-2 pipeline's
@@ -727,7 +1153,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     # one batch's buckets at full size: kernel vs plain, timed
     time_batch_buckets(eng, batches[0], k, diffs["fused_search"], res,
                        "batch_k10")
-    return res, eng, batches
+    return res, eng, batches, outs
 
 
 def dots_bound(gids, nq, kc, dim):
@@ -902,6 +1328,105 @@ def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
     return res
 
 
+def path_launches(name):
+    """The launch count of the kernel serving a phase 6 path."""
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.rank import rank_kernel
+
+    return {
+        "rank_only": lambda: rank_kernel.launches,
+        "fused_search_dv": lambda: F.fused_search.launches_dv,
+        "fused_search_split": lambda: F.fused_search.launches_dlim,
+    }[name]()
+
+
+def reset_launches():
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.rank import rank_kernel
+
+    for attr in ("launches", "launches_large_k", "launches_dlim",
+                 "launches_dv"):
+        setattr(F.fused_search, attr, 0)
+    rank_kernel.launches = 0
+
+
+def phase_paths(eng, batches, base_outs, diffs):
+    """Phase 6: the xla_rank, fused_dv and split paths at full size on
+    phase 4's index; each must return phase 4's fused outputs for every
+    query."""
+    import torch
+
+    sync = torch.cuda.synchronize
+    k, depth, nq = K, DEPTH, NQ
+    res = {}
+    for scorer, split, name in PATHS:
+        eng.scorer, eng.split_rows = scorer, split
+        r = {"scorer": scorer, "split_rows": split}
+        eng.preplan(batches, k=k)
+        t0 = time.perf_counter()
+        eng.warmup(queries=batches[0], k=k)
+        sync()
+        r["warmup_s"] = time.perf_counter() - t0
+        if scorer == "fused_dv":
+            r["dv_plane_bytes"] = sum(p.numel() * p.element_size()
+                                      for p in eng._dv_planes())
+        # the counted run: pieces and host times recorded per batch
+        rec, restore = host_timers(eng)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        outs = list(eng.search_stream(batches, k=k, depth=depth))
+        sync()
+        dt = time.perf_counter() - t0
+        restore()
+        r["launches"] = path_launches(name)
+        r["dispatch_ms"] = float(np.median(rec["dispatch_ms"]))
+        r["collect_ms"] = float(np.median(rec["collect_ms"]))
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["peak_extra_bytes"] = r["peak_bytes"] - base_mem
+        r["serving_qps_counted_pass"] = nq * len(batches) / dt
+        r["layout"] = eng.plan_cache.stats()
+        if split is not None:
+            pms = [f[2][0] for f in rec["futs"]]
+            r["pieces_per_batch"] = [nq if pm is None else int(pm[3])
+                                     for pm in pms]
+            r["max_pieces_per_query"] = max(
+                1 if pm is None else int(pm[2]) for pm in pms)
+        if r["launches"] <= 0:
+            raise AssertionError(f"the {scorer} path launched no {name}")
+        for b, ((ids, sc), (w_ids, w_sc)) in enumerate(zip(outs, base_outs)):
+            np.testing.assert_array_equal(ids, w_ids, f"{name} batch {b} ids")
+            np.testing.assert_array_equal(sc, w_sc, f"{name} batch {b} scores")
+        log(f"{name}: search_stream {nq * len(batches)} queries in "
+            f"{dt:.3f}s = {r['serving_qps_counted_pass']:.1f} q/s, "
+            f"median ms a batch on the host: dispatch {r['dispatch_ms']:.2f}"
+            f", collect {r['collect_ms']:.2f}; "
+            f"{r['launches']} launches, peak {r['peak_bytes']} B "
+            f"({r['peak_extra_bytes']} B above the start), all ids and "
+            f"scores == phase 4's")
+        qps = []
+        for _ in range(SERVING_PASSES):
+            t0 = time.perf_counter()
+            for _ids, _sc in eng.search_stream(batches, k=k, depth=depth):
+                pass
+            sync()
+            qps.append(nq * len(batches) / (time.perf_counter() - t0))
+        r["serving_qps"] = float(np.median(qps))
+        r["serving_qps_passes"] = qps
+        log(f"{name}: {SERVING_PASSES} more passes: median "
+            f"{r['serving_qps']:.1f} q/s, range {min(qps):.1f}.."
+            f"{max(qps):.1f}")
+        time_batch_buckets(eng, batches[0], k, diffs[name], r, "batch")
+        if scorer == "fused":
+            # buckets whose region still leaves shared memory (128 rows)
+            r["workspace_buckets"] = sum(
+                1 for _bq, _nb, _blk, rc in r["batch"]["buckets"] if rc > 128)
+        res[name] = r
+    eng.scorer, eng.split_rows = None, None
+    return res
+
+
 def kernel_entry(name, launches, diff, ms, plain_ms, bound_ms, bound_by,
                  library_ms):
     source, replaces = KERNELS[name]
@@ -936,16 +1461,22 @@ def main() -> int:
 
     diffs = {name: Diff() for name in KERNELS}
     n = phase_kernels(device, diffs)
-    log(f"phase 2: {n} fused kernel-vs-plain cases bit-identical")
+    log(f"phase 2: {n} fused and dv kernel-vs-plain cases bit-identical")
+    n = phase_split(device, diffs["fused_search_split"])
+    log(f"phase 2: {n} dlim kernel-vs-plain cases bit-identical")
+    n = phase_rank(device, diffs["rank_only"])
+    log(f"phase 2: {n} rank kernel-vs-plain cases bit-identical")
     n = phase_dots(device, diffs["rerank_dots"])
     log(f"phase 2: {n} dots kernel-vs-plain cases bit-identical")
     n = phase_oracle(device)
     log(f"phase 3: {n} oracle and rerank comparisons bit-identical")
-    res, eng, batches = phase_main(device, diffs)
+    res, eng, batches, outs = phase_main(device, diffs)
     res["kernel_build_s"] = build_s
     print("main path: " + json.dumps(res), flush=True)
     rr = phase_rerank(eng, batches, diffs)
     print("rerank path: " + json.dumps(rr), flush=True)
+    pp = phase_paths(eng, batches, outs, diffs)
+    print("further paths: " + json.dumps(pp), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],
@@ -958,6 +1489,11 @@ def main() -> int:
                      rr["dots_ms"], rr["dots_plain_ms"], rr["dots_bound_ms"],
                      rr["dots_bound_by"], rr["dots_library_ms"]),
     ]
+    for _scorer, _split, name in PATHS:
+        b = pp[name]["batch"]
+        kernels.append(kernel_entry(
+            name, pp[name]["launches"], diffs[name], b["kernel_ms"],
+            b["plain_ms"], b["bound_ms"], b["bound_by"], None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

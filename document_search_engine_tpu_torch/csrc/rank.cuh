@@ -35,6 +35,11 @@ namespace dse {
 
 constexpr int kLanes = 128;  // one plane row; every stored run is one row
 constexpr int kMaxK = 16;    // top-k held in registers per thread
+// One query's region per thread block of kThreads threads; regions up to
+// kSmemRegionBytes (16,384 pairs) stay in dynamic shared memory, larger
+// ones run over a per-query workspace slice the wrapper allocates.
+constexpr int kThreads = 512;
+constexpr int kSmemRegionBytes = 128 * 1024;
 
 __device__ __forceinline__ int key_doc(unsigned long long e, int kb) {
   return static_cast<int>(static_cast<unsigned>(e >> 32) >> kb);

@@ -10,18 +10,26 @@ Also the hybrid rerank path: `search_rerank` and its device-resident
 embedding table (`_device_embeddings`, ops/rerank.py).
 
 The engine runs on the card unless the caller asks for the CPU
-(`device="cpu"`, as the tests do). Scorer modes: "fused" (the
-hand-written CUDA kernel, ops/fused.py; the default on CUDA) and "plain"
-(the plain PyTorch scorer, ops/packed.py; the default on the CPU). On CPU
-tensors the fused wrapper itself takes the plain version. Both modes give
-the same ids and integer scores. As in the reference, fused mode serves
-k <= 128 with the kernel and k > 128 with the plain scorer, over
-uncompacted plans.
+(`device="cpu"`, as the tests do). Scorer modes, the reference's four:
+"fused" (the hand-written CUDA kernel, ops/fused.py; the default on
+CUDA), "fused_dv" (the same kernel reading one interleaved doc|value
+plane per segment, ops/fused_dv.py), "xla" (the plain PyTorch scorer,
+ops/packed.py; the default on the CPU; "plain" is its alias) and
+"xla_rank" (the plain pack, then the rank-only CUDA kernel, ops/rank.py).
+On CPU tensors every kernel wrapper takes its plain version. All modes
+give the same ids and integer scores. As in the reference, the kernels
+serve k <= 128 and larger k takes the plain scorer over uncompacted
+plans, by k alone ("fused_dv" is downgraded to "fused" first).
 
-Paths outside the slice raise NotImplementedError naming their ROADMAP
-item rather than taking another path: doc-range splitting (A11), the
-fused_dv and xla_rank modes (A15, A10), delete, compact and streaming
-build (A7), and save/load (A8).
+Doc-range splitting (`split_rows`, the fused mode with one block
+family): queries needing more compacted candidate rows than the
+threshold are cut into doc-disjoint pieces (ops/schedule.py
+split_pieces), each ranked by the fused kernel with per-piece doc limits
+and merged per query by (score desc, gid asc) on the host.
+
+Paths outside the port so far raise NotImplementedError naming their
+ROADMAP item rather than taking another path: delete, compact and
+streaming build (A7), and save/load (A8).
 """
 from __future__ import annotations
 
@@ -35,12 +43,18 @@ from ..index import builder
 from ..index.csr import GlobalStats, merge_stats
 from ..ops.fused import MAX_K
 from ..ops.plan_cache import PlanLayoutCache
-from ..ops.schedule import DEFAULT_FAMILIES, FUSED_FAMILIES, plan_batch
+from ..ops.schedule import (
+    DEFAULT_FAMILIES,
+    FUSED_FAMILIES,
+    plan_batch,
+    split_pieces,
+)
 from ..oracle import spec
 from .query import QueryFrontend, segment_rows
 
 F32 = np.float32
-SCORER_MODES = ("fused", "plain")
+SCORER_MODES = ("fused", "fused_dv", "xla", "xla_rank")
+SCORER_ALIASES = {"plain": "xla"}
 
 
 def _pow2_at_least(n: int, lo: int = 1) -> int:
@@ -62,8 +76,12 @@ def _batch_step(
     k: int,
     scale: float,
     clip: float,
-    mode: str,  # "fused" | "plain"
+    mode: str,  # "fused" | "fused_dv" | "xla" | "xla_rank"
     n_real: int,  # readback-trim gather size
+    dv_planes=None,  # per segment (X+8, 256) dv plane ("fused_dv")
+    cols_cat=None,  # (sum of bucket bq, 2) i32 piece columns (split)
+    offs_devs=None,  # per segment (T, P+1) i32 doc-quantile tables
+    split_p: int = 0,  # quantile columns P (0 = splitting off)
 ):
     """The device work of one batch: per (segment x bucket) the plan
     tables expand on the device from the shipped (bq, S) rows and
@@ -71,31 +89,63 @@ def _batch_step(
     where(v > 0, dloc + doc_base, -1) applies. Returns ONE (n_real, 2k)
     int32 tensor — per-bucket [vals | gids] stacked in plan order, with
     the pow-2 bq padding rows dropped by a gather whose indices ride in
-    rows_cat's tail (the same host->device copy)."""
+    rows_cat's tail (the same host->device copy).
+
+    With split_p, plan rows are doc-range pieces: their record ranges
+    come from the resident quantile tables and the kernel limits each
+    piece to docs [cols[0] * n_docs // P, cols[1] * n_docs // P)."""
     from ..ops.fused import expand_plan_tables, fused_search, key_bits_for
-    from ..ops.packed import search_packed_tables
+    from ..ops.fused_dv import fused_search_dv
+    from ..ops.packed import pack_tables, search_packed_tables
+    from ..ops.rank import rank_candidates_kernel
 
     out_v, out_g = [], []
     off = 0
-    for (n_docs, doc_base, dev_seg), (_nd, s, buckets) in zip(segments, plan):
+    for si, ((n_docs, doc_base, dev_seg), (_nd, s, buckets)) in enumerate(
+        zip(segments, plan)
+    ):
         for n_blocks, block, bq, r_c in buckets:
             rows_b = rows_cat[off : off + bq]
             cbits_b = cbits_cat[off : off + bq]
+            cols_b = dlim = None
+            if split_p:
+                cols_b = cols_cat[off : off + bq]
+                dlim = (
+                    (cols_b.long() * n_docs) // split_p
+                ).to(torch.int32).reshape(bq, 1, 2)
             off += bq
             sr, rm, ab, dst = expand_plan_tables(
                 dev_seg.row_start, dev_seg.indptr, rows_b, cbits_b,
                 n_blocks, block,
+                offs_dev=offs_devs[si] if split_p else None, cols=cols_b,
             )
-            # the kernel serves k <= MAX_K (128); larger k takes the plain
+            # the kernels serve k <= MAX_K (128); larger k takes the plain
             # scorer, as the reference takes its XLA twin: by k alone
-            if mode == "fused" and k <= MAX_K:
-                v, dloc = fused_search(
-                    dev_seg.post_doc, dev_seg.post_val, sr, rm, ab, dst,
+            if mode in ("fused", "fused_dv") and k <= MAX_K:
+                kw = dict(
                     n_blocks=n_blocks, block=block, s=s, k=k,
                     n_docs=n_docs, scale=scale, clip=clip, r_c=r_c,
                     key_bits=key_bits_for(s, n_docs),
                 )
+                if mode == "fused_dv":
+                    v, dloc = fused_search_dv(
+                        dv_planes[si], sr, rm, ab, dst, **kw
+                    )
+                else:
+                    v, dloc = fused_search(
+                        dev_seg.post_doc, dev_seg.post_val, sr, rm, ab, dst,
+                        dlim=dlim, **kw,
+                    )
                 g = torch.where(v > 0, dloc + doc_base, torch.full_like(v, -1))
+            elif mode == "xla_rank" and k <= MAX_K:
+                # the plain pack, then the rank-only kernel
+                d_key, ci = pack_tables(
+                    dev_seg.post_doc, dev_seg.post_val, sr, rm, ab, scale,
+                    clip, n_blocks, block, n_docs,
+                )
+                v, g = rank_candidates_kernel(
+                    d_key, ci, doc_base, block=block, s=s, k=k, n_docs=n_docs
+                )
             else:
                 v, g = search_packed_tables(
                     dev_seg.post_doc, dev_seg.post_val, sr, rm, ab,
@@ -211,7 +261,7 @@ class SearchEngine:
             np.zeros(0, np.uint64), np.zeros(0, np.int32), 0, 0
         )
         self.n_docs_total = 0
-        # None = "fused" on CUDA, "plain" on the CPU (scorer_mode)
+        # None = "fused" on CUDA, "xla" on the CPU (scorer_mode)
         self.scorer: str | None = None
         # segment lifecycle policy (the reference's): compact when the
         # segment count passes this bound; compaction itself is A7
@@ -224,10 +274,16 @@ class SearchEngine:
         # per-batch bucket plans are fitted into a per-engine grid of
         # cells, so kernel shapes and workspace sizes repeat per batch
         self.plan_cache: PlanLayoutCache | None = PlanLayoutCache()
-        # doc-range splitting threshold (ROADMAP A11); must stay None
+        # doc-range splitting (ops/schedule.py split_pieces): queries
+        # needing more compacted candidate rows than this are cut into
+        # doc-disjoint pieces that rank in smaller regions and merge
+        # exactly. None = off (the reference's default). Only the fused
+        # scorer with one block family takes it (_split_active).
         self.split_rows: int | None = None
         self._rows_global = None
         self._emb_cache: dict = {}  # dim -> (emb, ssq), _device_embeddings
+        self._dv_cache: dict = {}  # segment -> (doc, val, dv), _dv_planes
+        self._quant_cache: dict = {}  # segment -> (doc, offs_h, offs_d)
 
     # ------------------------------------------------------------- build
     def build(self, texts) -> None:
@@ -374,34 +430,40 @@ class SearchEngine:
     # ------------------------------------------------------------ search
     @property
     def scorer_mode(self) -> str:
-        """Active scorer: "fused" (the CUDA kernel; default on CUDA) or
-        "plain" (the plain PyTorch scorer; default on the CPU)."""
+        """Active scorer: "fused" (the CUDA kernel; default on CUDA),
+        "fused_dv" (the same kernel over interleaved doc|value planes),
+        "xla" (the plain PyTorch scorer; default on the CPU; "plain" is
+        its alias) or "xla_rank" (the plain pack and the rank-only
+        kernel). All are bit-identical."""
         if self.scorer is not None:
-            if self.scorer in ("fused_dv", "xla_rank"):
-                raise _not_ported(
-                    f"scorer {self.scorer!r}",
-                    "A15" if self.scorer == "fused_dv" else "A10",
-                )
-            if self.scorer not in SCORER_MODES:
+            mode = SCORER_ALIASES.get(self.scorer, self.scorer)
+            if mode not in SCORER_MODES:
                 raise ValueError(f"unknown scorer {self.scorer!r}")
-            return self.scorer
-        return "fused" if self.device.type == "cuda" else "plain"
+            return mode
+        return "fused" if self.device.type == "cuda" else "xla"
+
+    def _mode_for(self, k: int) -> str:
+        """The scorer mode serving k: "fused_dv" is downgraded to
+        "fused" for k > 128, which the plain scorer serves over the
+        standard planes (the reference's dispatcher does the same)."""
+        mode = self.scorer_mode
+        return "fused" if mode == "fused_dv" and k > MAX_K else mode
 
     def _families(self, mode: str):
         return self.block_families or (
-            FUSED_FAMILIES if mode == "fused" else DEFAULT_FAMILIES
+            FUSED_FAMILIES if mode.startswith("fused") else DEFAULT_FAMILIES
         )
 
-    def _check_slice(self, mode: str, k: int) -> None:
+    def _check_request(self, k: int) -> None:
+        """Raise on an unknown scorer name or k < 1."""
+        self.scorer_mode  # noqa: B018 — validates the scorer name
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        if self.split_rows is not None:
-            raise _not_ported("doc-range splitting (split_rows)", "A11")
 
     def search(self, queries, k: int = 10):
         """Batched search: (ids, scores) int64 arrays of shape (nq, k),
         ranked by (fixed-point score desc, global doc id asc)."""
-        self._check_slice(self.scorer_mode, k)
+        self._check_request(k)
         nq = len(queries)
         if nq == 0 or not self.segments:
             return (
@@ -418,7 +480,7 @@ class SearchEngine:
         keeping up to `depth` batches in flight; text analysis of the
         next batches runs on a worker thread. Analysis is re-run if the
         engine was mutated between prefetch and dispatch."""
-        self._check_slice(self.scorer_mode, k)
+        self._check_request(k)
 
         def analyze_job(queries):
             stats = self.stats  # snapshot: identity-checked at dispatch
@@ -462,7 +524,7 @@ class SearchEngine:
         if queries is not None:
             self.search(queries, k=k)
             return
-        self._check_slice(self.scorer_mode, k)
+        self._check_request(k)
         batch = synth_warmup_analysis(
             self.stats, self.config, nq, terms_per_query, seed
         )
@@ -500,13 +562,98 @@ class SearchEngine:
             a_seg = np.where(found, coeff, F32(0.0)).astype(F32)
             yield si, host, rows, found, a_seg
 
+    def _doc_quantiles(self, si: int, host, dev_seg):
+        """(offs_h, offs_d): the segment's (T, P+1) int32 doc-quantile
+        table for doc-range splitting, on the host for the planner and
+        on the device for the plan expansion. Built on the device from
+        the resident doc plane (builder.device_row_doc_quantiles; the
+        port keeps no host postings) and cached per segment while its
+        doc plane is the same tensor; entries of segments that are gone
+        are dropped, so none keeps a dropped plane's memory alive."""
+        for stale in [i for i in self._quant_cache
+                      if i >= len(self.segments)]:
+            del self._quant_cache[stale]
+        ent = self._quant_cache.get(si)
+        if ent is not None and ent[0] is dev_seg.post_doc:
+            return ent[1], ent[2]
+        offs_d = builder.device_row_doc_quantiles(
+            dev_seg.post_doc, dev_seg.indptr, dev_seg.row_start,
+            builder.SPLIT_QUANTILES, host.n_docs,
+        )
+        offs_h = offs_d.cpu().numpy()
+        self._quant_cache[si] = (dev_seg.post_doc, offs_h, offs_d)
+        return offs_h, offs_d
+
+    def _split_active(self, mode: str, k: int, families) -> bool:
+        """Splitting serves only the fused scorer with one block family
+        (ops/schedule.py split_pieces), for k the kernel serves."""
+        return (
+            self.split_rows is not None
+            and mode == "fused"
+            and k <= MAX_K
+            and len(families) == 1
+        )
+
+    def _segment_plan(self, si, host, dev_seg, rows, found, a_seg,
+                      families, mode, k):
+        """Shared by preplan and _dispatch: the segment's natural plan
+        and, when splitting, its piece table. Returns (rows_p, a_p, cols,
+        qidx, pno, natural); cols/qidx/pno are None when the plan rows
+        are the queries themselves."""
+        compact = mode.startswith("fused") and k <= MAX_K
+        # empty segments have no quantile table (T = 0) and nothing to
+        # split; they take the unsplit plan (zero blocks either way)
+        if not self._split_active(mode, k, families) or len(host.indptr) < 2:
+            natural = plan_batch(
+                host.indptr, rows, found, families=families,
+                min_blocks=self.plan_min_blocks, compact=compact,
+            )
+            return rows, a_seg, None, None, None, natural
+        offs_h, _offs_d = self._doc_quantiles(si, host, dev_seg)
+        lens = (host.indptr[rows + 1] - host.indptr[rows]) * found
+        qidx, pno, cols, lens_p = split_pieces(
+            lens, rows, offs_h, self.split_rows, families[0][1],
+            builder.SPLIT_QUANTILES,
+        )
+        natural = plan_batch(
+            host.indptr, rows[qidx], found[qidx], families=families,
+            min_blocks=self.plan_min_blocks, compact=compact, lens=lens_p,
+        )
+        return rows[qidx], a_seg[qidx], cols, qidx, pno, natural
+
+    def _dv_planes(self):
+        """Per segment the (X + 8, 256) interleaved doc|value plane of
+        the fused_dv scorer (ops/fused_dv.py interleave_planes), built on
+        the device and cached while the segment's planes are the same
+        tensors (a refresh of the values replaces post_val)."""
+        from ..ops.fused_dv import interleave_planes
+
+        out = []
+        for si, (_host, dev_seg) in enumerate(self.segments):
+            ent = self._dv_cache.get(si)
+            if (
+                ent is None
+                or ent[0] is not dev_seg.post_doc
+                or ent[1] is not dev_seg.post_val
+            ):
+                ent = (
+                    dev_seg.post_doc, dev_seg.post_val,
+                    interleave_planes(dev_seg.post_doc, dev_seg.post_val),
+                )
+                self._dv_cache[si] = ent
+            out.append(ent[2])
+        for si in [si for si in self._dv_cache if si >= len(self.segments)]:
+            del self._dv_cache[si]
+        return out
+
     def preplan(self, query_batches, k: int = 10) -> None:
         """Host-only: converge the plan-layout cache over representative
-        query batches before the first dispatch (pure numpy)."""
+        query batches before the first dispatch (numpy planning; with
+        splitting on, the quantile tables are built once first)."""
         if self.plan_cache is None or not self.segments:
             return
-        mode = self.scorer_mode
-        self._check_slice(mode, k)
+        mode = self._mode_for(k)
+        self._check_request(k)
         families = self._families(mode)
         per_key: dict = {}
         for queries in query_batches:
@@ -518,17 +665,16 @@ class SearchEngine:
             nq, s = coeff.shape
             if s != n_slots:
                 rows_g, found_g = rows_g[:, :s], found_g[:, :s]
-            for si, host, rows, found, _a in self._segment_inputs(
+            for si, host, rows, found, a_seg in self._segment_inputs(
                 slot_h, coeff, rows_g, found_g
             ):
-                natural = plan_batch(
-                    host.indptr, rows, found, families=families,
-                    min_blocks=self.plan_min_blocks,
-                    compact=(mode == "fused" and k <= MAX_K),
+                rows_p, _a, _cols, _qidx, _pno, natural = self._segment_plan(
+                    si, host, self.segments[si][1], rows, found, a_seg,
+                    families, mode, k,
                 )
                 key = self._plan_key(si, host, s, k, mode, families)
                 ent = per_key.setdefault(key, [0, []])
-                ent[0] = max(ent[0], nq)
+                ent[0] = max(ent[0], rows_p.shape[0])
                 ent[1].append(natural)
         for key, (nq, naturals) in per_key.items():
             self.plan_cache.seed_plans(key, naturals, nq)
@@ -536,12 +682,13 @@ class SearchEngine:
     def _dispatch(self, slot_h, coeff, k: int, rows_g=None, found_g=None):
         """Host planning + the device work of one query batch. Host work:
         slot->row lookup per segment (skipped where the segment's term
-        table is the global vocabulary), bucketing, and one stacked
-        (rows, coefficient bits) array pair; those are the only
-        host->device copies. Returns the in-flight device output plus
-        assembly metadata, so callers can pipeline batches."""
-        mode = self.scorer_mode
-        self._check_slice(mode, k)
+        table is the global vocabulary), splitting into doc-range pieces
+        when on, bucketing, and one stacked (rows, coefficient bits)
+        array pair (plus the pieces' quantile columns); those are the
+        only host->device copies. Returns the in-flight device output
+        plus assembly metadata, so callers can pipeline batches."""
+        mode = self._mode_for(k)
+        self._check_request(k)
         n_slots = slot_h.shape[1]
         slot_h, coeff = slice_active_slots(slot_h, coeff)
         nq, s = coeff.shape
@@ -553,20 +700,23 @@ class SearchEngine:
             F32(int(spec.quant_clip_max(self.config.max_query_terms)))
         )
         families = self._families(mode)
+        split = self._split_active(mode, k, families)
+        p = builder.SPLIT_QUANTILES
         plan = []  # per seg (n_docs, s, ((nb, blk, bq, rc), ...))
-        idx_map = []  # per segment: list of (query indices, bq)
-        r_subs, a_subs = [], []
+        idx_map = []  # per segment: list of (plan-row indices, bq)
+        piece_maps = []  # per segment: None | (qidx, pno, mmax, n_rows_p)
+        r_subs, a_subs, c_subs = [], [], []
         for si, host, rows, found, a_seg in self._segment_inputs(
             slot_h, coeff, rows_g, found_g
         ):
-            natural = plan_batch(
-                host.indptr, rows, found, families=families,
-                min_blocks=self.plan_min_blocks,
-                compact=(mode == "fused" and k <= MAX_K),
+            rows_p, a_p, cols, qidx, pno, natural = self._segment_plan(
+                si, host, self.segments[si][1], rows, found, a_seg,
+                families, mode, k,
             )
+            n_rows_p = rows_p.shape[0]
             if self.plan_cache is not None:
                 key = self._plan_key(si, host, s, k, mode, families)
-                cells = self.plan_cache.canonicalize(key, natural, nq)
+                cells = self.plan_cache.canonicalize(key, natural, n_rows_p)
             else:
                 cells = [
                     (idx, nb, blk, rc, _pow2_at_least(len(idx)))
@@ -576,14 +726,28 @@ class SearchEngine:
             for idx, n_blocks, block, r_c, bq in cells:
                 r_sub = np.zeros((bq, s), np.int32)
                 a_sub = np.zeros((bq, s), F32)
-                r_sub[: len(idx)] = rows[idx]
-                a_sub[: len(idx)] = a_seg[idx]
+                r_sub[: len(idx)] = rows_p[idx]
+                a_sub[: len(idx)] = a_p[idx]
                 r_subs.append(r_sub)
                 a_subs.append(a_sub)
+                if split:
+                    # padding rows and unsplit (empty) segments take the
+                    # whole-row piece (0, P): cols stay aligned with the
+                    # bucket offsets across all segments
+                    c_sub = np.zeros((bq, 2), np.int32)
+                    c_sub[:, 1] = p
+                    if cols is not None:
+                        c_sub[: len(idx)] = cols[idx]
+                    c_subs.append(c_sub)
                 buckets.append((n_blocks, block, bq, r_c))
                 idxs.append((idx, bq))
             plan.append((host.n_docs, s, tuple(buckets)))
             idx_map.append(idxs)
+            piece_maps.append(
+                None if cols is None
+                else (qidx, pno, int(pno.max()) + 1 if len(pno) else 1,
+                      n_rows_p)
+            )
         # readback trim: the real (non-pad) output rows are gathered on
         # the device before the single device->host read; the gather
         # index rides in rows_cat's tail
@@ -601,6 +765,16 @@ class SearchEngine:
         tail[:n_real] = idx_flat
         r_all = np.concatenate([r_all, tail.reshape(n_extra, s)], axis=0)
         dev = self.device
+        split_kw = {}
+        if split:
+            split_kw = dict(
+                cols_cat=torch.from_numpy(np.concatenate(c_subs)).to(dev),
+                offs_devs=[
+                    self._doc_quantiles(si, h, d)[1]
+                    for si, (h, d) in enumerate(self.segments)
+                ],
+                split_p=p,
+            )
         out = _batch_step(
             [(h.n_docs, h.doc_base, d) for h, d in self.segments],
             torch.from_numpy(r_all).to(dev),
@@ -613,35 +787,54 @@ class SearchEngine:
             clip=clip,
             mode=mode,
             n_real=n_real,
+            dv_planes=self._dv_planes() if mode == "fused_dv" else None,
+            **split_kw,
         )
-        return out, idx_map, nq, k
+        return out, idx_map, piece_maps, nq, k
 
     def _collect(self, fut):
         """Force the device->host read of a dispatched batch and
-        assemble (ids, scores); across segments the per-segment top-k
-        merge by (score desc, gid asc) on the host."""
-        out, idx_map, nq, k = fut
+        assemble (ids, scores): a split query's doc-disjoint pieces, and
+        then the segments, merge by (score desc, gid asc) on the host."""
+        out, idx_map, piece_maps, nq, k = fut
         host = out.cpu().numpy()
         all_vals, all_gids = [], []
         off = 0  # rows are the gathered REAL rows, bq pad dropped
-        for idxs in idx_map:
-            seg_v = np.full((nq, k), -1, np.int32)
-            seg_g = np.full((nq, k), -1, np.int32)
+        for idxs, pm in zip(idx_map, piece_maps):
+            n_rows = nq if pm is None else pm[3]
+            seg_v = np.full((n_rows, k), -1, np.int32)
+            seg_g = np.full((n_rows, k), -1, np.int32)
             for idx, _bq in idxs:
                 seg_v[idx] = host[off : off + len(idx), :k]
                 seg_g[idx] = host[off : off + len(idx), k:]
                 off += len(idx)
+            if pm is not None and pm[2] > 1:
+                # pieces are doc-disjoint, so the merge of their top-ks
+                # is the unsplit ranking (as for segments below)
+                qidx, pno, mmax, _n = pm
+                pv = np.full((nq, mmax, k), -1, np.int32)
+                pg = np.full((nq, mmax, k), -1, np.int32)
+                pv[qidx, pno] = seg_v
+                pg[qidx, pno] = seg_g
+                seg_v, seg_g = _merge_ranked(
+                    pv.reshape(nq, mmax * k), pg.reshape(nq, mmax * k), k
+                )
             all_vals.append(seg_v)
             all_gids.append(seg_g)
         if len(all_vals) == 1:
             v, g = all_vals[0], all_gids[0]
         else:
-            vc = np.concatenate(all_vals, axis=1)
-            gc = np.concatenate(all_gids, axis=1)
-            # (score desc, gid asc); dead (-1,-1) rows sink
-            order = np.lexsort((gc, -vc.astype(np.int64)), axis=-1)[:, :k]
-            v = np.take_along_axis(vc, order, axis=1)
-            g = np.take_along_axis(gc, order, axis=1)
-            g = np.where(v > 0, g, -1)
-            v = np.where(v > 0, v, -1)
-        return g.astype(np.int64), v.astype(np.int64)
+            v, g = _merge_ranked(
+                np.concatenate(all_vals, axis=1),
+                np.concatenate(all_gids, axis=1), k,
+            )
+        return g[:nq].astype(np.int64), v[:nq].astype(np.int64)
+
+
+def _merge_ranked(vc: np.ndarray, gc: np.ndarray, k: int):
+    """Top k of each row of (vals, gids) by (score desc, gid asc); dead
+    (-1, -1) entries sink and come out as (-1, -1)."""
+    order = np.lexsort((gc, -vc.astype(np.int64)), axis=-1)[:, :k]
+    v = np.take_along_axis(vc, order, axis=1)
+    g = np.take_along_axis(gc, order, axis=1)
+    return np.where(v > 0, v, -1), np.where(v > 0, g, -1)

@@ -255,6 +255,88 @@ def device_align_planes(
     return doc2.reshape(x_rows, LANES), tf2.reshape(x_rows, LANES)
 
 
+# Doc-range split quantiles (ops/schedule.py split_pieces): each term
+# row's postings are doc-ascending, so a (T, P+1) table of "count of
+# postings with doc < j*n_docs/P" lets the planner cut any row into P
+# doc-disjoint ranges with exact lengths. P=8 bounds the table at T x 9
+# int32 and gives heavy queries up to 8-way splits.
+SPLIT_QUANTILES = 8
+
+
+def quantile_doc_bounds(p: int, n_docs: int) -> np.ndarray:
+    """(p+1,) int64 doc thresholds D_j = floor(j * n_docs / p); piece j
+    covers docs [D_j, D_{j+1})."""
+    return (np.arange(p + 1, dtype=np.int64) * n_docs) // p
+
+
+def host_row_doc_quantiles(
+    indptr: np.ndarray,  # (T+1,) true cumulative lengths
+    post_doc: np.ndarray,  # (nnz,) packed postings, doc-ascending per row
+    p: int,
+    n_docs: int,
+) -> np.ndarray:
+    """(T, p+1) int32: offs[t, j] = count of row t's postings with
+    doc < D_j (quantile_doc_bounds); offs[:, 0] = 0, offs[:, p] = row
+    length. Vectorized: one cumsum of (doc < D) per interior threshold.
+    The engine keeps no host postings and uses the device form; this one
+    is the tests' yardstick."""
+    t_n = len(indptr) - 1
+    offs = np.zeros((t_n, p + 1), np.int32)
+    if t_n == 0:
+        return offs
+    bounds = quantile_doc_bounds(p, n_docs)
+    lens = (indptr[1:] - indptr[:-1]).astype(np.int64)
+    for j in range(1, p):
+        cum = np.zeros(len(post_doc) + 1, np.int64)
+        np.cumsum(post_doc < bounds[j], out=cum[1:])
+        offs[:, j] = (cum[indptr[1:]] - cum[indptr[:-1]]).astype(np.int32)
+    offs[:, p] = lens.astype(np.int32)
+    return offs
+
+
+def device_row_doc_quantiles(
+    post_doc2: torch.Tensor,  # (X, 128) i32 aligned doc plane
+    indptr: torch.Tensor,  # (T+1,) i32 true cumulative lengths
+    row_start: torch.Tensor,  # (T,) i32 aligned flat record starts
+    p: int,
+    n_docs: int,
+) -> torch.Tensor:
+    """host_row_doc_quantiles over the ALIGNED device plane: per (row,
+    interior threshold) a branch-free int32 binary search of 32 steps on
+    the row's doc-ascending records, all (T, p-1) searches at once.
+    Sentinel padding (doc = n_docs) sorts past every threshold. A probe
+    past a row's end reads the next row's records (a row whose length is
+    a multiple of 128, or a zero-length row), so the result is clamped
+    to the row length, as the reference does. Probes outside the plane
+    clamp to its last record, as XLA's gather does."""
+    dev = post_doc2.device
+    flat = post_doc2.reshape(-1)
+    lens = indptr[1:] - indptr[:-1]
+    t_n = int(row_start.shape[0])
+    bounds = torch.from_numpy(
+        quantile_doc_bounds(p, n_docs)[1:p].astype(np.int32)
+    ).to(dev)
+    lo = torch.zeros((t_n, p - 1), dtype=torch.int32, device=dev)
+    hi = lens[:, None].expand(t_n, p - 1).contiguous()
+    start = row_start[:, None].long()
+    last = max(int(flat.numel()) - 1, 0)
+    for _ in range(32):
+        mid = (lo + hi) // 2
+        v = flat[(start + mid.long()).clamp(max=last)]
+        right = v < bounds
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(right, hi, mid)
+    mids = torch.minimum(lo, lens[:, None])
+    return torch.cat(
+        [
+            torch.zeros((t_n, 1), dtype=torch.int32, device=dev),
+            mids.to(torch.int32),
+            lens.reshape(t_n, 1).to(torch.int32),
+        ],
+        dim=1,
+    )
+
+
 def aligned_geometry(indptr: np.ndarray, pad_to: int):
     """(row_start (T,) i64, X): 128-aligned flat start offset per term
     row in the (X, 128) posting planes, and the plane row count (with

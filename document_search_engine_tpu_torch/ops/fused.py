@@ -2,17 +2,20 @@
 
 Port of the host and XLA parts of `document_search_engine_tpu/ops/
 fused_pallas.py` (key bits, compaction granule and
-`expand_plan_tables`), plus the wrapper of the CUDA kernel that replaces
-its Pallas kernel `_fused_kernel` and the rank stage of
+`expand_plan_tables`, with its doc-range piece form), plus the wrapper
+of the CUDA kernel that replaces its Pallas kernel `_fused_kernel`
+(with its `dlim` doc-range branch) and the rank stage of
 `ops/rank_pallas.py merge_rank_body`, both its k <= 16 branch and its
-k 17..128 tournament branch (csrc/fused_search.cu, csrc/rank.cuh).
+k 17..128 tournament branch (csrc/fused_search.cu, csrc/rank.cuh). The
+same kernel's interleaved-plane load stage serves ops/fused_dv.py.
 
-The kernel library (every csrc/*.cu, the rerank dots of ops/rerank.py
-included) is compiled by nvcc at first use into `_build/` next to this
-package, keyed by a hash of the sources and flags, and loaded with
-ctypes (a plain C interface: no PyTorch headers, a few seconds of
-build). `fused_search` launches it for CUDA tensors and takes the plain
-PyTorch version (ops/packed.py) for CPU tensors; there is no other path.
+The kernel library (every csrc/*.cu, the rank-only kernel of ops/rank.py
+and the rerank dots of ops/rerank.py included) is compiled by nvcc at
+first use into `_build/` next to this package, keyed by a hash of the
+sources and flags, and loaded with ctypes (a plain C interface: no
+PyTorch headers, a few seconds of build). `fused_search` launches it for
+CUDA tensors and takes the plain PyTorch version (ops/packed.py) for CPU
+tensors; there is no other path.
 """
 from __future__ import annotations
 
@@ -75,6 +78,8 @@ def expand_plan_tables(
     cbits: torch.Tensor,  # (nq, S) i32 bitcast-f32 slot coefficients
     n_blocks: int,
     block: int,
+    offs_dev: torch.Tensor | None = None,  # (T, P+1) i32 doc quantiles
+    cols: torch.Tensor | None = None,  # (nq, 2) i32 piece quantile columns
 ):
     """Device-side twin of the reference's host `plan_tables`: expands
     (nq, S) rows/coeff-bits into the (nq, 1, NB) srcrow/rem/abits/dstrow
@@ -85,7 +90,13 @@ def expand_plan_tables(
     Where the reference loops over the S slots with masked selects, the
     slot owning block j is found directly, as the number of slots whose
     cumulative block count is <= j (one batched searchsorted), which
-    keeps the op count independent of S."""
+    keeps the op count independent of S.
+
+    offs_dev/cols (doc-range splitting): each plan row is a piece of a
+    query covering quantile columns [cols[q, 0], cols[q, 1]): per slot
+    the record range [offs_dev[row, c0], offs_dev[row, c1]), read from
+    its 128-aligned floor (the kernel's doc limits mask the head
+    overlap)."""
     assert block <= NNZ_SLICE_MARGIN, (
         f"block={block} exceeds the builder's slice margin "
         f"({NNZ_SLICE_MARGIN}); tail blocks would read out of bounds"
@@ -99,7 +110,15 @@ def expand_plan_tables(
         return sr, z, z.clone(), z.clone()
     coeff = cbits.view(torch.float32)
     rl = rows.long()
-    lens = indptr[rl + 1] - indptr[rl]
+    if cols is not None:
+        cl = cols.long()
+        lo = offs_dev[rl, cl[:, 0:1]]  # (nq, S)
+        hi = offs_dev[rl, cl[:, 1:2]]
+        start_al = lo - lo % LANES
+        lens = hi - start_al
+    else:
+        start_al = 0
+        lens = indptr[rl + 1] - indptr[rl]
     lens = torch.where(coeff > 0, lens, torch.zeros_like(lens))
     nblk = -(-lens // block)
     blk_end = torch.cumsum(nblk, dim=1).to(torch.int32)  # (nq, S)
@@ -111,7 +130,8 @@ def expand_plan_tables(
     slot_c = slot.clamp(max=s - 1).long()
     blk_start = (blk_end - nblk).gather(1, slot_c)
     off_b = jj - blk_start
-    starts128 = (row_start[rl] // LANES).gather(1, slot_c)
+    # row starts and piece starts are both 128-aligned
+    starts128 = ((row_start[rl] + start_al) // LANES).gather(1, slot_c)
     neg = torch.full_like(off_b, -1)
     zero = torch.zeros_like(off_b)
     srcrow = torch.where(used, starts128 + off_b * b128, neg)
@@ -210,27 +230,49 @@ def _lib():
     global _lib_handle
     if _lib_handle is None:
         lib = ctypes.CDLL(str(build_kernels()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dse_fused_search.argtypes = [
-            p, p, p, p, p, p,  # planes and plan tables
+            p, p, p, p, p, p, p,  # planes, plan tables, dlim (or None)
             i, i, i, i, i, i,  # nq, n_blocks, block, s, k, n_docs
-            ctypes.c_float, ctypes.c_float,  # scale, clip
+            f, f,  # scale, clip
             i, i,  # r_c, key_bits
             p, p, p, p,  # workspace, vals, docs, stream
         ]
-        lib.dse_fused_search.restype = i
+        lib.dse_fused_search_dv.argtypes = [
+            p, p, p, p, p,  # dv plane, plan tables
+            i, i, i, i, i, i,  # nq, n_blocks, block, s, k, n_docs
+            f, f,  # scale, clip
+            i, i,  # r_c, key_bits
+            p, p, p, p,  # workspace, vals, docs, stream
+        ]
+        lib.dse_rank.argtypes = [
+            p, p,  # d_key, ci
+            i, i, i, i, i, i,  # nq, c, run, s, k, n_docs
+            p, p, p, p,  # workspace, vals, docs, stream
+        ]
         lib.dse_rerank_dots.argtypes = [
             p, p, p, p,  # emb, ssq, qemb, gids
             i, i, i,  # nq, candidates, dim
             p, p, p,  # dots, cand_ssq, stream
         ]
-        lib.dse_rerank_dots.restype = i
+        for fn in (lib.dse_fused_search, lib.dse_fused_search_dv,
+                   lib.dse_rank, lib.dse_rerank_dots):
+            fn.restype = i
         lib.dse_error_string.argtypes = [i]
         lib.dse_error_string.restype = ctypes.c_char_p
         lib.dse_smem_region_bytes.argtypes = []
         lib.dse_smem_region_bytes.restype = i
         _lib_handle = lib
     return _lib_handle
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({_lib().dse_error_string(err).decode()})"
+        )
 
 
 def _check_int32(name: str, t: torch.Tensor, device, shape=None):
@@ -244,55 +286,32 @@ def _check_int32(name: str, t: torch.Tensor, device, shape=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
-def fused_search(
-    post_doc: torch.Tensor,  # (X, 128) i32 aligned doc plane
-    post_val: torch.Tensor,  # (X, 128) i32 aligned bitcast-f32 val plane
-    srcrow: torch.Tensor,  # (nq, 1, NB) i32 plan tables
-    rem: torch.Tensor,
-    abits: torch.Tensor,
-    dstrow: torch.Tensor,
-    *,
-    n_blocks: int,
-    block: int,
-    s: int,
-    k: int,
-    n_docs: int,
-    scale: float,  # f32(2^scale_bits) as a Python float
-    clip: float,  # f32 per-contribution clip as a Python float
-    r_c: int,  # compacted region rows per query (pow2)
-    key_bits: int,  # unique-key shift (key_bits_for), 0 = plain doc keys
+def launch_fused(
+    planes,  # (post_doc, post_val) (X, 128) planes, or (post_dv,) (X+8, 256)
+    srcrow, rem, abits, dstrow, dlim, *, n_blocks, block, s, k, n_docs,
+    scale, clip, r_c, key_bits,
 ):
-    """(vals, docs_local) (nq, k) int32 ranked (score desc, doc asc);
-    (-1, -1) for exhausted slots. Every query must fit its compacted
-    blocks in r_c rows (the bucketed planner guarantees it).
-
-    CUDA tensors launch the kernel on the current stream and count one
-    launch, in fused_search.launches for k <= 16 and in
-    fused_search.launches_large_k for 16 < k <= 128; CPU tensors take the
-    plain version
-    (ops/packed.py search_packed_tables), which ignores dstrow, r_c and
-    key_bits — they only shape the kernel's buffer, not the result."""
-    dev = post_doc.device
-    if dev.type == "cpu":
-        from .packed import search_packed_tables
-
-        return search_packed_tables(
-            post_doc, post_val, srcrow, rem, abits, scale, clip, 0,
-            n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_search: unsupported device {dev}")
+    """Checks the arguments and launches the fused kernel on CUDA
+    tensors (the two-plane load stage, with doc limits when dlim is
+    given, or the dv load stage for one plane). Returns (vals, docs)."""
+    dev = planes[0].device
     nq = srcrow.shape[0]
-    _check_int32("post_doc", post_doc, dev)
-    _check_int32("post_val", post_val, dev, post_doc.shape)
-    if post_doc.ndim != 2 or post_doc.shape[1] != LANES:
-        raise ValueError(f"post_doc: expected (X, {LANES}), got {post_doc.shape}")
+    for name, t in zip(("post_doc", "post_val"), planes):
+        _check_int32(name, t, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    width = LANES if len(planes) == 2 else 2 * LANES
+    if planes[0].ndim != 2 or planes[0].shape[1] != width:
+        raise ValueError(
+            f"plane: expected (X, {width}), got {tuple(planes[0].shape)}")
+    if len(planes) == 2 and planes[1].shape != planes[0].shape:
+        raise ValueError("post_val: shape differs from post_doc")
     for name, t in (
         ("srcrow", srcrow), ("rem", rem), ("abits", abits), ("dstrow", dstrow)
     ):
         _check_int32(name, t, dev, (nq, 1, n_blocks))
-    if post_doc.data_ptr() % 16 or post_val.data_ptr() % 16:
-        raise ValueError("posting planes must be 16-byte aligned")
+    if dlim is not None:
+        _check_int32("dlim", dlim, dev, (nq, 1, 2))
     if not 1 <= k <= MAX_K:
         raise NotImplementedError(
             f"k={k}: the CUDA kernel serves 1 <= k <= {MAX_K}; the "
@@ -315,30 +334,87 @@ def fused_search(
     if nq == 0:
         return vals, docs
     lib = _lib()
-    region_bytes = r_c * LANES * 8
     workspace = None
-    if region_bytes > lib.dse_smem_region_bytes():
+    if r_c * LANES * 8 > lib.dse_smem_region_bytes():
         workspace = torch.empty(nq * r_c * LANES, dtype=torch.int64, device=dev)
+    tail = (
+        nq, n_blocks, block, s, k, n_docs, scale, clip, r_c, key_bits,
+        None if workspace is None else workspace.data_ptr(),
+        vals.data_ptr(), docs.data_ptr(),
+    )
+    tables = [t.data_ptr() for t in (srcrow, rem, abits, dstrow)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dse_fused_search(
-            post_doc.data_ptr(), post_val.data_ptr(), srcrow.data_ptr(),
-            rem.data_ptr(), abits.data_ptr(), dstrow.data_ptr(),
-            nq, n_blocks, block, s, k, n_docs, scale, clip, r_c, key_bits,
-            None if workspace is None else workspace.data_ptr(),
-            vals.data_ptr(), docs.data_ptr(), stream,
+        if len(planes) == 2:
+            err = lib.dse_fused_search(
+                planes[0].data_ptr(), planes[1].data_ptr(), *tables,
+                None if dlim is None else dlim.data_ptr(), *tail, stream,
+            )
+        else:
+            err = lib.dse_fused_search_dv(
+                planes[0].data_ptr(), *tables, *tail, stream
+            )
+    check_launch("fused_search", err)
+    return vals, docs
+
+
+def fused_search(
+    post_doc: torch.Tensor,  # (X, 128) i32 aligned doc plane
+    post_val: torch.Tensor,  # (X, 128) i32 aligned bitcast-f32 val plane
+    srcrow: torch.Tensor,  # (nq, 1, NB) i32 plan tables
+    rem: torch.Tensor,
+    abits: torch.Tensor,
+    dstrow: torch.Tensor,
+    *,
+    n_blocks: int,
+    block: int,
+    s: int,
+    k: int,
+    n_docs: int,
+    scale: float,  # f32(2^scale_bits) as a Python float
+    clip: float,  # f32 per-contribution clip as a Python float
+    r_c: int,  # compacted region rows per query (pow2)
+    key_bits: int,  # unique-key shift (key_bits_for), 0 = plain doc keys
+    dlim: torch.Tensor | None = None,  # (nq, 1, 2) i32 [d_lo, d_hi)
+):
+    """(vals, docs_local) (nq, k) int32 ranked (score desc, doc asc);
+    (-1, -1) for exhausted slots. Every query must fit its compacted
+    blocks in r_c rows (the bucketed planner guarantees it). dlim
+    (doc-range splitting): per plan row, postings whose doc lies outside
+    [d_lo, d_hi) contribute nothing.
+
+    CUDA tensors launch the kernel on the current stream and count one
+    launch: in fused_search.launches_dlim when dlim is given, else in
+    fused_search.launches for k <= 16 and fused_search.launches_large_k
+    for 16 < k <= 128. CPU tensors take the plain version
+    (ops/packed.py search_packed_tables), which ignores dstrow, r_c and
+    key_bits — they only shape the kernel's buffer, not the result."""
+    dev = post_doc.device
+    if dev.type == "cpu":
+        from .packed import search_packed_tables
+
+        return search_packed_tables(
+            post_doc, post_val, srcrow, rem, abits, scale, clip, 0,
+            n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
+            dlim=dlim,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_search launch failed: CUDA error {err} "
-            f"({lib.dse_error_string(err).decode()})"
-        )
-    if k <= SMALL_K:
+    if dev.type != "cuda":
+        raise ValueError(f"fused_search: unsupported device {dev}")
+    out = launch_fused(
+        (post_doc, post_val), srcrow, rem, abits, dstrow, dlim,
+        n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
+        scale=scale, clip=clip, r_c=r_c, key_bits=key_bits,
+    )
+    if dlim is not None:
+        fused_search.launches_dlim += 1
+    elif k <= SMALL_K:
         fused_search.launches += 1
     else:
         fused_search.launches_large_k += 1
-    return vals, docs
+    return out
 
 
 fused_search.launches = 0
 fused_search.launches_large_k = 0
+fused_search.launches_dlim = 0
+fused_search.launches_dv = 0  # counted by ops/fused_dv.py fused_search_dv

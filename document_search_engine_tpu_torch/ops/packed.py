@@ -4,7 +4,9 @@ Port of `document_search_engine_tpu/ops/packed.py` (`search_packed_tables`
 and `rank_candidates`). It consumes the very same per-(query, block) plan
 tables as the fused CUDA kernel (ops/fused.py) and is the kernel's plain
 version: the CPU path, the ground truth the kernel is held against on the
-card, and the engine's "plain" scorer mode. Per query:
+card, and the engine's "xla" (alias "plain") scorer mode. The "xla_rank"
+mode runs pack_tables here, then the rank-only kernel (ops/rank.py) in
+place of stages 3-5. Per query:
 
 1. pack     — every plan block reads `block` records of the aligned
               planes at its source row (a block read past the row's end
@@ -91,7 +93,7 @@ def rank_candidates(
     return vals, gids
 
 
-def search_packed_tables(
+def pack_tables(
     post_doc2: torch.Tensor,  # (X, 128) i32 aligned doc plane
     post_val2: torch.Tensor,  # (X, 128) i32 aligned bitcast-f32 vals
     srcrow: torch.Tensor,  # (nq, 1, NB) i32 plan (ops/fused.py)
@@ -99,16 +101,17 @@ def search_packed_tables(
     abits: torch.Tensor,  # (nq, 1, NB) i32 bitcast-f32 slot coefficients
     scale: float,  # f32(2^scale_bits) as a Python float
     clip: float,  # f32 per-contribution clip as a Python float
-    doc_base: int,
     n_blocks: int,
     block: int,
-    s: int,  # query slot count (bounds per-doc occurrences per row)
-    k: int,
     n_docs: int,
+    dlim: torch.Tensor | None = None,  # (nq, 1, 2) i32 [d_lo, d_hi)
 ):
-    """(vals, gids) (nq, k) int32 from the plan tables, ranked (score
-    desc, gid asc); (-1, -1) for exhausted slots. Memory is
-    O(nq * n_blocks * block): callers chunk large batches."""
+    """Stages 1-2 (pack, quantize): (d_key, ci) (nq, n_blocks * block)
+    int32, every aligned `block`-run doc-ascending with a sentinel tail
+    (doc n_docs, ci 0) — the layout the rank-only kernel (ops/rank.py)
+    merges. dlim masks postings outside [d_lo, d_hi) like rem-tail
+    padding (the reference twin's form; the kernel's is in
+    csrc/fused_search.cu)."""
     assert block <= NNZ_SLICE_MARGIN, (
         f"block={block} exceeds the builder's slice margin "
         f"({NNZ_SLICE_MARGIN}); tail blocks would read clamped sources"
@@ -132,6 +135,9 @@ def search_packed_tables(
     valid = (lane.to(torch.int32) < rem2[:, :, None]) & (
         srcrow2[:, :, None] >= 0
     )
+    if dlim is not None:
+        dl = dlim.reshape(nq, 1, 2)
+        valid = valid & (d_b >= dl[:, :, 0:1]) & (d_b < dl[:, :, 1:2])
     scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
     ci_f = torch.round((a_b[:, :, None] * v) * scale_t)
     ci = ci_f.clamp(0.0, clip).to(torch.int32)
@@ -140,5 +146,34 @@ def search_packed_tables(
     )
     d_key = torch.where(valid, d_b, torch.full_like(d_b, n_docs)).reshape(
         nq, n_blocks * block
+    )
+    return d_key, ci
+
+
+def search_packed_tables(
+    post_doc2: torch.Tensor,  # (X, 128) i32 aligned doc plane
+    post_val2: torch.Tensor,  # (X, 128) i32 aligned bitcast-f32 vals
+    srcrow: torch.Tensor,  # (nq, 1, NB) i32 plan (ops/fused.py)
+    rem: torch.Tensor,  # (nq, 1, NB) i32
+    abits: torch.Tensor,  # (nq, 1, NB) i32 bitcast-f32 slot coefficients
+    scale: float,  # f32(2^scale_bits) as a Python float
+    clip: float,  # f32 per-contribution clip as a Python float
+    doc_base: int,
+    n_blocks: int,
+    block: int,
+    s: int,  # query slot count (bounds per-doc occurrences per row)
+    k: int,
+    n_docs: int,
+    dlim: torch.Tensor | None = None,  # (nq, 1, 2) i32 [d_lo, d_hi)
+):
+    """(vals, gids) (nq, k) int32 from the plan tables, ranked (score
+    desc, gid asc); (-1, -1) for exhausted slots. Memory is
+    O(nq * n_blocks * block): callers chunk large batches.
+
+    dlim: per plan row, postings whose doc lies outside [d_lo, d_hi) are
+    masked like rem-tail padding."""
+    d_key, ci = pack_tables(
+        post_doc2, post_val2, srcrow, rem, abits, scale, clip, n_blocks,
+        block, n_docs, dlim=dlim,
     )
     return rank_candidates(d_key, ci, doc_base, s, k, n_docs)

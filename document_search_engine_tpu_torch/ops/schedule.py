@@ -1,7 +1,8 @@
 """Batch scheduling: bucket queries by packed-block need.
 
-Port of `document_search_engine_tpu/ops/schedule.py` (the unsplit
-planner; the doc-range split planner is ROADMAP item A11). Pure numpy,
+Port of `document_search_engine_tpu/ops/schedule.py` (the planner and
+the single-engine doc-range split planner; the sharded one,
+`split_pieces_sharded`, comes with the sharded engine). Pure numpy,
 unchanged, except that GRANULE_ROWS comes from the port's fused module.
 Queries are grouped into pow-2 n_blocks buckets, each bucket runs at its
 own budget, and results scatter back to their original positions.
@@ -72,6 +73,67 @@ def bucket_queries(nblk: np.ndarray, min_blocks: int = 4):
     return out
 
 
+def split_pieces(
+    lens: np.ndarray,  # (nq, S) per-slot postings lengths (0 = missing)
+    rows: np.ndarray,  # (nq, S) term rows
+    offs: np.ndarray,  # (T, P+1) host doc-quantile table (builder)
+    threshold_rows: int,  # split queries needing more compacted rows
+    block: int,
+    p: int,  # quantile columns (builder.SPLIT_QUANTILES)
+):
+    """Doc-range split plan for heavy queries: a query whose compacted
+    candidate need exceeds `threshold_rows` becomes m = 2^ceil(log2(
+    need/threshold)) pieces (capped at p), piece i covering quantile
+    columns [p*i/m, p*(i+1)/m) — doc-DISJOINT ranges, so every doc's
+    integer score is complete within one piece and the per-query merge
+    of piece top-ks equals the unsplit ranking exactly. Light queries
+    stay one piece with columns (0, p).
+
+    Returns (qidx (np_,), pno (np_,), cols (np_, 2), lens_p (np_, S)):
+    the piece->query map, each piece's index within its query, its
+    quantile columns, and its per-slot lengths from the 128-aligned
+    piece range starts (what the kernel reads)."""
+    need = compact_rows_per_query(lens, block)  # (nq,)
+    qidx, pno, cols = _piece_structure(need, threshold_rows, p)
+    lens_p = _piece_lens(lens, rows, offs, qidx, cols)
+    return qidx, pno, cols, lens_p
+
+
+def _piece_structure(need: np.ndarray, threshold_rows: int, p: int):
+    """(qidx, pno, cols) piece table from per-query compacted need: a
+    query needing more than `threshold_rows` becomes m = 2^ceil(log2(
+    need/threshold)) pieces (capped at p), piece i covering quantile
+    columns [p*i/m, p*(i+1)/m)."""
+    nq = len(need)
+    m = np.ones(nq, np.int64)
+    heavy = need > threshold_rows
+    if heavy.any():
+        ratio = -(-need[heavy] // threshold_rows)
+        mm = 1 << np.ceil(np.log2(ratio)).astype(np.int64)
+        m[heavy] = np.minimum(mm, p)
+    starts = np.zeros(nq + 1, np.int64)
+    np.cumsum(m, out=starts[1:])
+    total = int(starts[-1])
+    qidx = np.repeat(np.arange(nq, dtype=np.int64), m)
+    pno = (np.arange(total, dtype=np.int64) - starts[qidx]).astype(
+        np.int32
+    )
+    mq = m[qidx]
+    c0 = ((pno * p) // mq).astype(np.int32)
+    c1 = (((pno + 1) * p) // mq).astype(np.int32)
+    return qidx, pno, np.stack([c0, c1], axis=1)
+
+
+def _piece_lens(lens, rows, offs, qidx, cols):
+    """Per-slot lengths of each piece from a quantile table: the
+    128-aligned piece range [align128(offs[r, c0]), offs[r, c1])."""
+    rows_p = rows[qidx]
+    lo = offs[rows_p, cols[:, 0:1]].astype(np.int64)
+    hi = offs[rows_p, cols[:, 1:2]].astype(np.int64)
+    start_al = lo - (lo % 128)
+    return np.where(lens[qidx] > 0, hi - start_al, 0)
+
+
 def plan_batch(
     indptr: np.ndarray,
     rows: np.ndarray,
@@ -79,6 +141,7 @@ def plan_batch(
     families=DEFAULT_FAMILIES,
     min_blocks: int = 4,
     compact: bool = False,
+    lens: np.ndarray | None = None,
 ):
     """Mixed-block schedule: light queries use fine blocks, heavy
     queries coarse ones. Families are (total-postings threshold, block
@@ -89,6 +152,10 @@ def plan_batch(
     rows: with compact=True (the fused kernel) queries are sub-bucketed
     by their real granule-rounded postings need; otherwise r_c is the
     uncompacted n_blocks * block / 128.
+
+    lens (doc-range splitting): precomputed per-slot lengths (e.g.
+    split_pieces' piece lengths) override the indptr-derived ones; rows
+    then index pieces, not queries.
     """
     nq = rows.shape[0]
     if len(indptr) < 2 or rows.size == 0:
@@ -96,7 +163,8 @@ def plan_batch(
         return (
             [(np.arange(nq), 1, blk0, blk0 // 128)] if nq else []
         )
-    lens = (indptr[rows + 1] - indptr[rows]) * found
+    if lens is None:
+        lens = (indptr[rows + 1] - indptr[rows]) * found
     totals = lens.sum(axis=1)
     plans = []
     assigned = np.zeros(nq, bool)

@@ -6,7 +6,7 @@ CPU tensors but keeps the fused path's block family, compacted plans
 and r_c buckets), k up to 200 (fused mode takes the plain scorer over
 uncompacted plans above 128, as the reference does). Also: a JAX-built
 index carried across by index/convert.py serves identically, and paths
-outside the slice raise NotImplementedError. Each package's engine is
+not ported yet raise NotImplementedError. Each package's engine is
 configured with its own package's IndexConfig."""
 import numpy as np
 import pytest
@@ -213,18 +213,17 @@ def test_paths_outside_the_slice_raise():
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    eng.split_rows = 64
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.search(queries)
-    eng.split_rows = None
-    for scorer, item in (("fused_dv", "A15"), ("xla_rank", "A10")):
-        eng.scorer = scorer
-        with pytest.raises(NotImplementedError, match=item):
-            eng.search(queries)
-    # fused k > 16 and search_rerank serve
-    eng.scorer = "fused"
+    # doc-range splitting and the fused_dv and xla_rank scorers serve
     ora = OracleEngine()
     ora.build(docs)
+    for scorer, split in (("fused", 2), ("fused_dv", None),
+                          ("xla_rank", None)):
+        eng.scorer, eng.split_rows = scorer, split
+        _assert_same(eng.search(queries), ora.search(queries),
+                     f"{scorer} split_rows={split}")
+    eng.split_rows = None
+    # fused k > 16 and search_rerank serve
+    eng.scorer = "fused"
     _assert_same(eng.search(queries, k=40), ora.search(queries, k=40),
                  "fused k=40")
     ids, ri, lex = eng.search_rerank(queries, k=5, candidates=16)

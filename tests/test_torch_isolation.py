@@ -2,9 +2,10 @@
 a process where importing jax or the JAX package fails; no module of the
 port, and not chip_smoke.py, imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
-the kernel wrapper takes its plain version for CPU tensors without
-counting a launch; and each host module the port keeps its own copy of
-behaves as its original in the JAX package on the same inputs."""
+its xla_rank, fused_dv and split paths serve on the CPU; the kernel
+wrapper takes its plain version for CPU tensors without counting a
+launch; and each host module the port keeps its own copy of behaves as
+its original in the JAX package on the same inputs."""
 import ast
 import os
 import subprocess
@@ -47,6 +48,13 @@ assert ids[0, 0] >= 0 and ids[2, 0] == -1
 r_ids, r_sc, r_lex = eng.search_rerank(["quick fox", "dog"], k=2,
                                        candidates=4)
 assert r_ids.shape == (2, 2) and set(r_ids[1]) <= {1, 2, 3}, r_ids
+# the xla_rank, fused_dv and split paths (ops/rank.py, ops/fused_dv.py)
+import document_search_engine_tpu_torch.ops.fused_dv
+import document_search_engine_tpu_torch.ops.rank
+for scorer, split in (("xla_rank", None), ("fused_dv", None), ("fused", 1)):
+    eng.scorer, eng.split_rows = scorer, split
+    p_ids, p_scores = eng.search(["quick fox", "dog", "nothing"], k=3)
+    assert (p_ids == o_ids).all() and (p_scores == o_scores).all(), scorer
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
@@ -99,7 +107,40 @@ def test_engine_defaults_to_the_card(monkeypatch):
         SearchEngine()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert SearchEngine().device.type == "cuda"
-    assert SearchEngine(device="cpu").scorer_mode == "plain"
+    # the plain scorer is the reference's "xla" mode; "plain" names it too
+    eng = SearchEngine(device="cpu")
+    assert eng.scorer_mode == "xla"
+    eng.scorer = "plain"
+    assert eng.scorer_mode == "xla"
+
+
+def test_further_paths_serve_on_cpu_and_card_still_required(monkeypatch):
+    """The xla_rank and fused_dv scorers and doc-range splitting no
+    longer raise NotImplementedError: on the CPU they serve the oracle's
+    results; a SearchEngine() without CUDA still raises."""
+    from document_search_engine_tpu_torch import SearchEngine
+    from document_search_engine_tpu_torch.oracle import OracleEngine
+
+    docs = ["alpha beta gamma", "beta gamma", "gamma delta alpha", "delta"]
+    queries = ["alpha gamma", "beta", "delta alpha", "none"]
+    ora = OracleEngine()
+    ora.build(docs)
+    want = ora.search(queries, k=3)
+    for scorer, split in (("xla_rank", None), ("fused_dv", None),
+                          ("fused", 1), ("fused", 64)):
+        eng = SearchEngine(device="cpu")
+        eng.scorer, eng.split_rows = scorer, split
+        eng.build(docs)
+        eng.preplan([queries], k=3)
+        got = eng.search(queries, k=3)
+        np.testing.assert_array_equal(got[0], want[0], f"{scorer} {split}")
+        np.testing.assert_array_equal(got[1], want[1], f"{scorer} {split}")
+    eng.scorer = "no_such_scorer"
+    with pytest.raises(ValueError, match="unknown scorer"):
+        eng.search(queries)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SearchEngine()
 
 
 def test_wrapper_takes_plain_version_on_cpu_tensors():
@@ -258,8 +299,59 @@ def _check_oracle():
                 np.testing.assert_array_equal(g, w)
 
 
+def _check_split_planner():
+    from document_search_engine_tpu.ops import schedule as ref_s
+    from document_search_engine_tpu_torch.ops import schedule as port_s
+
+    rng = np.random.default_rng(11)
+    n_terms, nq, s, p = 40, 200, 8, 8
+    lens_t = rng.integers(0, 5000, n_terms)
+    offs = np.sort(rng.integers(0, 5000, (n_terms, p + 1)), axis=1)
+    offs[:, 0], offs[:, p] = 0, lens_t
+    offs = np.minimum(offs, lens_t[:, None]).astype(np.int32)
+    rows = rng.integers(0, n_terms, (nq, s)).astype(np.int32)
+    lens = np.where(rng.random((nq, s)) < 0.7, lens_t[rows], 0)
+    need = ref_s.compact_rows_per_query(lens, 1024)
+    for thr in (1, 3, 40, 10**6):
+        got = port_s._piece_structure(need, thr, p)
+        want = ref_s._piece_structure(need, thr, p)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(
+            port_s._piece_lens(lens, rows, offs, got[0], got[2]),
+            ref_s._piece_lens(lens, rows, offs, want[0], want[2]),
+        )
+        for g, w in zip(port_s.split_pieces(lens, rows, offs, thr, 1024, p),
+                        ref_s.split_pieces(lens, rows, offs, thr, 1024, p)):
+            np.testing.assert_array_equal(g, w)
+
+
+def _check_doc_quantiles():
+    from document_search_engine_tpu.index import builder as ref_b
+    from document_search_engine_tpu_torch.index import builder as port_b
+
+    assert port_b.SPLIT_QUANTILES == ref_b.SPLIT_QUANTILES
+    rng = np.random.default_rng(12)
+    for p, n_docs in ((8, 977), (4, 10), (8, 2_000_000)):
+        np.testing.assert_array_equal(port_b.quantile_doc_bounds(p, n_docs),
+                                      ref_b.quantile_doc_bounds(p, n_docs))
+        lens = rng.integers(0, min(200, n_docs), 30)
+        lens[[3, 7]] = 0  # empty rows
+        indptr = np.zeros(31, np.int64)
+        np.cumsum(lens, out=indptr[1:])
+        post_doc = np.concatenate([
+            np.sort(rng.choice(n_docs, size=l, replace=False)) for l in lens
+        ]).astype(np.int32)
+        np.testing.assert_array_equal(
+            port_b.host_row_doc_quantiles(indptr, post_doc, p, n_docs),
+            ref_b.host_row_doc_quantiles(indptr, post_doc, p, n_docs))
+    assert port_b.host_row_doc_quantiles(
+        np.zeros(1, np.int64), np.zeros(0, np.int32), 8, 5).shape == (0, 9)
+
+
 @pytest.mark.parametrize("module", [
     "tokenizer_and_hasher", "native_analyzer", "plan_cache", "oracle",
+    "split_planner", "doc_quantiles",
 ])
 def test_host_module_copy_matches_original(module):
     {
@@ -267,4 +359,6 @@ def test_host_module_copy_matches_original(module):
         "native_analyzer": _check_native_analyzer,
         "plan_cache": _check_plan_cache,
         "oracle": _check_oracle,
+        "split_planner": _check_split_planner,
+        "doc_quantiles": _check_doc_quantiles,
     }[module]()
