@@ -16,18 +16,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    128} (the large-k branch), unique keys (kb > 0) and plain doc keys
    (kb = 0), missing slots, rem tails, skipped blocks, duplicate rows
    (ties), queries with fewer than k hits, winners crowded into one
-   thread's positions (the large-k refill), an empty segment and several
-   buckets; its dv load stage on the same plans over the interleaved
-   plane. Its doc-limit (dlim) load stage: doc-range pieces from the
-   device quantile tables (first rows that start below d_lo, ranges with
-   no docs), and arbitrary limits (empty, touching 0 and n_docs), both
-   key widths and both region kinds; the merged pieces must also equal
-   the unsplit plain scorer. The rank-only kernel: block-sorted rows of
-   C 1,024 to 131,072 pairs (shared memory and workspace), block {256,
-   1024}, k in {1, 10, 16, 17, 64, 128}, s in {1, 8, 32}, zero
-   contributions, an empty query, a query with fewer than k hits, and
-   crowded winners. The rerank dots: random int8 tables at dim {64, 256}
-   and K {16, 64, 128}, with dead (-1) and repeated gids. Results must be
+   thread's positions, an empty segment and several buckets; its dv load
+   stage on the same plans over the interleaved plane. Its doc-limit
+   (dlim) load stage: doc-range pieces from the device quantile tables
+   (first rows that start below d_lo, ranges with no docs), and
+   arbitrary limits (empty, touching 0 and n_docs), both key widths and
+   both region kinds; the merged pieces must also equal the unsplit
+   plain scorer. The rank-only kernel: block-sorted rows of C 1,024 to
+   131,072 pairs (shared memory and workspace), block {256, 1024}, k in
+   {1, 10, 16, 17, 64, 128}, s in {1, 8, 32}, zero contributions, an
+   empty query, a query with fewer than k hits, and crowded winners.
+   Cases aimed at the rank stage's merge (natural runs, merge path), for
+   all four (fused, dv, dlim, rank-only), every k of {1, 10, 16, 17, 64,
+   128}, kb > 0 and kb = 0: a region that is one run; a break at every
+   block or run boundary (blocks in reverse order; the worst case), in
+   shared memory and in the workspace; one posting beside thousands; 3
+   and 5 runs; blocks skipped and all-sentinel runs between real ones;
+   equal docs in 8 runs; real pairs one under, at and one over each
+   shared-memory capacity (both merge buffers, the first only); exactly
+   k candidates and fewer; winners side by side in one warp's stretch.
+   The rerank dots: random int8 tables at dim {64, 256} and K {16, 64,
+   128}, with dead (-1) and repeated gids. Results must be
    bit-identical.
 3. Parity on the card: SearchEngine(device="cuda") equals the frozen CPU
    oracle in ids and integer scores (bm25 and tfidf, k up to 200), in
@@ -44,8 +53,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    seeded sample of >= 1,024 queries covering every bucket cell must
    equal the plain scorer on the card. Serving q/s is the median of 5
    more passes. One batch's buckets are then compared in full, kernel
-   against plain version, and each is timed as the median of 5 warm
-   runs.
+   against plain version, and timed as the median of 5 warm runs: all
+   together, and each bucket alone with its queries' natural runs, real
+   pairs and buffer placement ("per_bucket", here and in phases 5, 6).
 5. The rerank path at full size, on phase 4's index: the device
    embedding table (dim 256) is built and timed, then search_rerank runs
    over the same 4 batches (k=10, 64 candidates); the large-k fused
@@ -71,7 +81,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 stdout ends with the kernels' JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line. Progress goes
-to stderr.
+to stderr. chip_ab.py runs this script in several trees in turn, for a
+comparison on one card in one go.
 """
 from __future__ import annotations
 
@@ -158,16 +169,17 @@ class Diff:
 
 
 # ------------------------------------------------------------ phase 2
-def aligned_csr(rng, n_terms, doc_space, max_len, n_docs):
-    """Random CSR rows of unique ascending docs drawn from
-    [0, doc_space), in the builder's aligned (X, 128) plane layout with
-    sentinel doc n_docs in the padding. Returns (indptr, row_start, d2,
-    v2)."""
+def csr_from_lens(rng, lens, doc_space, n_docs):
+    """CSR rows of the given lengths, each of unique ascending docs drawn
+    from [0, doc_space), in the aligned (X, 128) plane layout of
+    index/builder.py, with sentinel doc n_docs in the padding. Returns (indptr, row_start,
+    d2, v2)."""
     from document_search_engine_tpu_torch.index.builder import (
         aligned_geometry,
     )
 
-    lens = rng.integers(0, max_len + 1, n_terms)
+    lens = np.asarray(lens, np.int64)
+    n_terms = len(lens)
     indptr = np.zeros(n_terms + 1, np.int64)
     np.cumsum(lens, out=indptr[1:])
     row_start, x_rows = aligned_geometry(indptr, 1)
@@ -185,6 +197,12 @@ def aligned_csr(rng, n_terms, doc_space, max_len, n_docs):
         indptr.astype(np.int32), row_start.astype(np.int32),
         d2.reshape(x_rows, 128), v2.reshape(x_rows, 128),
     )
+
+
+def aligned_csr(rng, n_terms, doc_space, max_len, n_docs):
+    """csr_from_lens with random lengths in [0, max_len]."""
+    return csr_from_lens(rng, rng.integers(0, max_len + 1, n_terms),
+                         doc_space, n_docs)
 
 
 def fused_name(k: int) -> str:
@@ -292,9 +310,9 @@ def phase_kernels(device, diffs, seed: int = 0) -> int:
             n_checked += 1
     # winners crowded into one thread: one term over docs 0..n-1, so
     # position p of the sorted region holds doc p and the rank stage's
-    # thread p % 512 owns it; docs p % 512 == 0 score highest (tied), so
-    # thread 0 owns the first n / 512 winners and must refill its
-    # top-16 from the region (n 12,000: shared memory; 20,000: workspace)
+    # thread p % 512 scans it; docs p % 512 == 0 score highest (tied), so
+    # thread 0 meets the first n / 512 winners, more than the 16 its
+    # registers hold (n 12,000: shared memory; 20,000: workspace)
     for n, k, kbm in ((12_000, 64, "auto"), (20_000, 128, "zero"),
                       (20_000, 17, "auto")):
         indptr = np.array([0, n], np.int32)
@@ -395,7 +413,8 @@ def phase_rank(device, diff, seed: int = 3) -> int:
         return int((got[0] > 0).sum())
 
     # (nq, n_blocks, block, s, n_docs): C from 1,024 to 131,072 pairs;
-    # the region is in shared memory up to C 16,384, else in workspace
+    # from C 16,384 on the launch has a workspace, which a query uses
+    # when its real pairs do not fit shared memory
     for nq, nb, block, s, n_docs in (
         (16, 4, 256, 4, 500),
         (16, 8, 256, 8, 120),  # few docs: many repeated across runs
@@ -417,8 +436,8 @@ def phase_rank(device, diff, seed: int = 3) -> int:
         log(f"rank kernel == plain: C={nb * block} block={block} s={s}, "
             f"k in (1, 10, 16, 17, 64, 128), {hits} hits at k=128")
     # winners crowded into one thread: one run of docs 0..m-1 at their
-    # positions, the docs p % 512 == 0 scoring highest, so thread 0 owns
-    # them all (C 16,384: shared memory; 32,768: workspace)
+    # positions, the docs p % 512 == 0 scoring highest, so thread 0 scans
+    # them all (C 16,384 and 32,768)
     for c, m, k in ((16384, 12000, 64), (32768, 20000, 128),
                     (32768, 20000, 17)):
         d = np.full((2, c), m, np.int32)
@@ -431,6 +450,283 @@ def phase_rank(device, diff, seed: int = 3) -> int:
         log(f"rank kernel == plain: {what}, {hits} hits")
         n += 1
     return n
+
+
+# k of every case aimed at the merge: both sides of 16, and the maximum
+MERGE_KS = (1, 10, 16, 17, 64, 128)
+
+
+def merge_rank_rows(rng, c, run, n_docs):
+    """Rows aimed at the rank stage's merge, in the rank-only kernel's
+    layout ((n, c) int32 doc keys and contributions, every aligned `run`
+    stretch ascending with a sentinel tail of doc n_docs): one natural
+    run; a break at every run boundary; one short run beside one long
+    one; three natural runs; all-sentinel runs between real ones; the
+    same docs in several runs (equal keys, different contributions);
+    exactly kk candidates for each kk of MERGE_KS, and five; winners
+    crowded into one warp's stretch of the sorted region and into one
+    thread's positions. Needs c >= 8 * run and n_docs >= c. Returns
+    (names, d, ci, s): s bounds a doc's occurrences in a row."""
+    units = c // run
+    live = min(units, 128)
+
+    def sample(n, lo=0, hi=n_docs):
+        return np.sort(rng.choice(hi - lo, size=n, replace=False) + lo)
+
+    def chop(docs):  # consecutive full runs, the last one partial
+        return [docs[i : i + run] for i in range(0, len(docs), run)]
+
+    cases = {
+        "one run": chop(sample(c - run // 2)),
+        "break at every run": [
+            sample(int(rng.integers(1, run + 1))) for _ in range(live)],
+        "1 pair beside a long run": (
+            [sample(1, n_docs // 2)] + chop(sample((units - 1) * run))),
+        "three natural runs": (
+            chop(sample(2 * run)) + chop(sample(3 * run - 7))
+            + chop(sample(run + 1))),
+        "sentinel runs between": [
+            sample(int(rng.integers(1, run + 1))) if u % 3 == 0
+            else np.zeros(0, np.int64) for u in range(live)],
+        "equal docs in 8 runs": [sample(run - 3)] * 8,
+        "five candidates": [sample(3), sample(2)],
+        "one warp's stretch": chop(np.arange(c - 2 * run)),
+        "one thread's positions": chop(np.arange(c - 2 * run)),
+    }
+    for kk in MERGE_KS:
+        docs = sample(kk)
+        cases[f"exactly {kk} candidates"] = [docs[::2], docs[1::2]]
+    d = np.full((len(cases), c), n_docs, np.int32)
+    ci = np.zeros((len(cases), c), np.int32)
+    for row, (name, parts) in enumerate(cases.items()):
+        for u, docs in enumerate(parts):
+            lo = u * run
+            d[row, lo : lo + len(docs)] = docs
+            vals = rng.integers(1, 50, len(docs))
+            if "candidates" not in name:
+                vals[rng.random(len(docs)) < 0.1] = 0
+            if name == "one warp's stretch":  # the best 128 side by side
+                vals[:] = np.where(docs < 128, 1000 + docs % 7, vals)
+            if name == "one thread's positions":
+                vals[:] = np.where(docs % 512 == 0, 1000, vals)
+            ci[row, lo : lo + len(docs)] = vals
+    return list(cases), d, ci, live
+
+
+def rows_with_real_pairs(rng, c, run, n_docs, counts):
+    """One row per count n in `counts`: exactly n real pairs in two
+    natural runs (full runs first, then a second ascending stretch)."""
+    d = np.full((len(counts), c), n_docs, np.int32)
+    ci = np.zeros((len(counts), c), np.int32)
+    for row, n in enumerate(counts):
+        first = (n // 2) // run * run
+        for lo, m in ((0, first), (first, n - first)):
+            d[row, lo : lo + m] = np.sort(
+                rng.choice(n_docs, size=m, replace=False))
+            ci[row, lo : lo + m] = rng.integers(0, 50, m)
+    return d, ci
+
+
+def smem_words(units, c) -> int:
+    """The 8-byte words of dynamic shared memory behind the run table of
+    a launch over regions of c pairs in `units` stored units
+    (csrc/rank.cuh region_smem_bytes): a query whose real pairs fit
+    twice keeps both merge buffers there, once the first."""
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    table = (units + 2) // 2
+    return min(table * 8 + c * 16, F._lib().dse_smem_max_bytes()) // 8 - table
+
+
+def phase_merge_rank(device, diff, seed: int = 5) -> int:
+    """The rank-only kernel on merge_rank_rows and on rows at the edges
+    of the shared-memory capacity; returns cases checked."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.packed import rank_candidates
+    from document_search_engine_tpu_torch.ops.rank import (
+        rank_candidates_kernel,
+    )
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n = 0
+    sets = []
+    for c, run in ((2048, 256), (16384, 1024), (32768, 256), (131072, 1024)):
+        names, d, ci, s = merge_rank_rows(rng, c, run, 4 * c)
+        sets.append((f"merge rows C={c} run={run} ({len(names)} rows)", d, ci,
+                     run, s, 4 * c))
+    c, run = 32768, 1024
+    sw = smem_words(c // run, c)
+    edges = [sw // 2 - 1, sw // 2, sw // 2 + 1, sw - 1, sw, sw + 1]
+    d, ci = rows_with_real_pairs(rng, c, run, 4 * c, edges)
+    sets.append((f"real pairs {edges} around the shared-memory capacity, "
+                 f"C={c}", d, ci, run, 2, 4 * c))
+    for what, d, ci, run, s, n_docs in sets:
+        for k in MERGE_KS:
+            got = rank_candidates_kernel(t(d), t(ci), 0, block=run, s=s, k=k,
+                                         n_docs=n_docs)
+            want = rank_candidates(t(d), t(ci), 0, s, k, n_docs)
+            torch.cuda.synchronize()
+            diff.check(got[0], want[0], f"{what} k={k} vals")
+            diff.check(got[1], want[1], f"{what} k={k} gids")
+            n += 1
+        log(f"rank kernel == plain: {what}, k in {MERGE_KS}")
+    return n
+
+
+def reorder_blocks(tabs, block, rng, reverse, skip):
+    """The plan tables with each query's blocks in reverse order (every
+    block boundary then breaks the doc order) and/or a share `skip` of
+    the blocks skipped (srcrow -1); dstrow recomputed for the new order,
+    the slot ids moving with their blocks."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    sr, rm, ab, dst = (x.clone() for x in tabs)
+    slot = dst >> F.SLOT_SHIFT
+    if reverse:
+        sr, rm, ab, slot = (torch.flip(x, dims=[2]) for x in (sr, rm, ab, slot))
+    if skip:
+        drop = torch.from_numpy(rng.random(tuple(sr.shape)) < skip)
+        sr = torch.where(drop.to(sr.device), torch.full_like(sr, -1), sr)
+    crows = F._compact_rows(rm[:, 0, :], block)
+    rows = (torch.cumsum(crows, dim=1) - crows).to(torch.int32)[:, None, :]
+    return [x.contiguous() for x in (sr, rm, ab, rows | (slot << F.SLOT_SHIFT))]
+
+
+def merge_plans(rng, device):
+    """Plans aimed at the fused kernel's merge, as (what, d2, v2, plan
+    tables, n_blocks, block, s, n_docs)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    out = []
+
+    def plan(what, lens, rows, coeff, block, n_docs, reverse=False, skip=0.0,
+             extra=0, edit=None):
+        rows = np.asarray(rows, np.int32)
+        coeff = np.asarray(coeff, np.float32)
+        indptr, row_start, d2, v2 = csr_from_lens(rng, lens, n_docs, n_docs)
+        if edit is not None:
+            edit(row_start, d2, v2)
+        lens_q = np.where(coeff > 0, indptr[rows + 1] - indptr[rows], 0)
+        need_b = int((-(-lens_q // block)).sum(1).max())
+        nb = 1 << int(np.ceil(np.log2(max(need_b + extra, 1))))
+        tabs = F.expand_plan_tables(t(row_start), t(indptr), t(rows),
+                                    t(coeff.view(np.int32)), nb, block)
+        if reverse or skip:
+            tabs = reorder_blocks(tabs, block, rng, reverse, skip)
+        out.append((what, d2, v2, tabs, nb, block, rows.shape[1], n_docs))
+        return nb
+
+    ones = lambda nq, s: np.ones((nq, s), np.float32)
+    co = ones(4, 4)
+    co[:, 1:] = 0.0
+    plan("one run", [5000, 300, 300, 300], [[0, 1, 2, 3]] * 4, co, 512, 20000)
+    rows = rng.integers(0, 6, (8, 4))
+    plan("a break at every block, shared memory", [3000] * 6, rows,
+         ones(8, 4), 128, 9000, reverse=True)
+    plan("a break at every block, workspace", [9000] * 6, rows, ones(8, 4),
+         256, 30000, reverse=True)
+    plan("1 posting beside 40,000", [1, 60, 40000, 100],
+         [[0, 2], [1, 2], [2, 0], [3, 3]], ones(4, 2), 4096, 100000)
+    plan("1 posting beside 9,000", [1, 9000], [[0, 1], [1, 0]], ones(2, 2),
+         1024, 50000)
+    for s, live in ((4, 3), (8, 5)):
+        co = ones(8, s) * (rng.random((8, s)) + 0.1).astype(np.float32)
+        co[:, live:] = 0.0
+        rows = rng.integers(0, 6, (8, s))
+        lens = rng.integers(500, 2500, 6)
+        plan(f"{live} runs", lens, rows, co, 512, 6000)
+        plan(f"{live} runs, blocks skipped in between", lens, rows, co, 512,
+             6000, skip=0.3, extra=3)
+    plan("equal docs in 8 runs", [2500, 70],
+         [[0] * 8, [1] * 8, [0, 1] * 4], ones(3, 8), 512, 5000)
+    # real postings around the shared-memory capacity: two terms a query,
+    # 4 blocks each, so 8 stored units and regions of 256 rows
+    sw = smem_words(8, 256 * 128)
+    edges = [sw // 2 - 1, sw // 2, sw // 2 + 1, sw - 1, sw, sw + 1]
+    lens = [m for n in edges for m in (n // 2, n - n // 2)]
+    nb = plan(f"real postings {edges} around the shared-memory capacity",
+              lens, [[2 * i, 2 * i + 1] for i in range(len(edges))],
+              ones(len(edges), 2), 4096, 200000)
+    if nb != 8 or tight_rc(out[-1][3][1], 4096) != 256:
+        raise AssertionError("the capacity-edge plan changed its geometry")
+    lens = list(MERGE_KS) + [5]
+    plan("exactly k candidates, and five", lens,
+         [[i, i] for i in range(len(lens))], ones(len(lens), 2), 128, 3000)
+
+    def crowd(row_start, d2, v2):  # the best 128 docs side by side
+        lo = int(row_start[0])
+        v = v2.reshape(-1).view(np.float32)
+        v[lo : lo + 12000] *= np.float32(0.25)
+        v[lo : lo + 128] = np.float32(1.9)
+
+    plan("winners in one warp's stretch", [12000, 50], [[0, 1]] * 2,
+         ones(2, 2), 4096, 12000, edit=crowd)
+    return out
+
+
+def check_dlim(device, diff, d2t, v2t, tabs, dlim, nb, block, s, k, n_docs,
+               kb, what):
+    """The fused kernel with doc limits against search_packed_tables with
+    the same limits, at the tight region size and twice it; returns the
+    kernel's last output."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.packed import (
+        search_packed_tables,
+    )
+
+    kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs)
+    want = search_packed_tables(d2t, v2t, *tabs[:3], SCALE, CLIP, 0,
+                                dlim=dlim, **kw)
+    rc0 = tight_rc(tabs[1], block)
+    for rc in (rc0, 2 * rc0):
+        got = F.fused_search(d2t, v2t, *tabs, scale=SCALE, clip=CLIP,
+                             r_c=rc, key_bits=kb, dlim=dlim, **kw)
+        torch.cuda.synchronize()
+        diff.check(got[0], want[0], f"{what} r_c={rc} vals")
+        diff.check(got[1], want[1], f"{what} r_c={rc} docs")
+    return got
+
+
+def phase_merge_fused(device, diffs, seed: int = 4):
+    """The fused kernel, its dv load stage and its doc-limit load stage
+    on merge_plans, every k of MERGE_KS, unique keys and plain doc keys;
+    returns (fused and dv cases, dlim cases)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n_fused = n_dlim = 0
+    for what, d2, v2, tabs, nb, block, s, n_docs in merge_plans(rng, device):
+        nq = tabs[0].shape[0]
+        rc = tight_rc(tabs[1], block)
+        lim = np.sort(rng.integers(0, n_docs + 1, (nq, 2)), axis=1)
+        lim[0] = (0, n_docs)
+        dlim = t(lim.astype(np.int32).reshape(nq, 1, 2))
+        d2t, v2t = t(d2), t(v2)
+        for k in MERGE_KS:
+            for kb in (F.key_bits_for(s, n_docs), 0):
+                tag = f"merge: {what} (r_c={rc} k={k} kb={kb})"
+                check_fused(device, diffs, d2, v2, tabs, nb, block, s, k,
+                            n_docs, rc, kb, tag)
+                n_fused += 1
+                check_dlim(device, diffs["fused_search_split"], d2t, v2t,
+                           tabs, dlim, nb, block, s, k, n_docs, kb,
+                           tag + " dlim")
+                n_dlim += 1
+        log(f"kernel == plain: merge: {what}, r_c={rc}, k in {MERGE_KS}, "
+            f"both key widths; fused, dv and dlim")
+    return n_fused, n_dlim
 
 
 def phase_split(device, diff, seed: int = 2) -> int:
@@ -450,19 +746,8 @@ def phase_split(device, diff, seed: int = 2) -> int:
     p = B.SPLIT_QUANTILES
     n, n_head = 0, 0
 
-    def check(d2t, v2t, tabs, dlim, nb, block, s, k, n_docs, kb, what):
-        kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs)
-        out = {}
-        for rc in (tight_rc(tabs[1], block), 2 * tight_rc(tabs[1], block)):
-            got = F.fused_search(d2t, v2t, *tabs, scale=SCALE, clip=CLIP,
-                                 r_c=rc, key_bits=kb, dlim=dlim, **kw)
-            want = search_packed_tables(d2t, v2t, *tabs[:3], SCALE, CLIP, 0,
-                                        dlim=dlim, **kw)
-            torch.cuda.synchronize()
-            diff.check(got[0], want[0], f"{what} r_c={rc} vals")
-            diff.check(got[1], want[1], f"{what} r_c={rc} docs")
-            out = got
-        return out
+    def check(*args):
+        return check_dlim(device, diff, *args)
 
     # (n_terms, n_docs, max_len, nq, s, block, k, kb)
     for n_terms, n_docs, max_len, nq, s, block, k, kbm in (
@@ -946,12 +1231,53 @@ def capture_batch(eng, batch, k):
     return captured
 
 
+def run_statistics(d_key, ci, granule, n_docs, chunk_elems=16 << 20):
+    """Per query of packed (nq, C) buffers whose aligned granules are
+    ascending with sentinel tails: (natural runs, real pairs), as the
+    rank stage counts them (ops/rank.py natural_run_starts)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.rank import natural_run_starts
+
+    runs, real = [], []
+    step = max(1, chunk_elems // d_key.shape[1])
+    for lo in range(0, d_key.shape[0], step):
+        d = d_key[lo : lo + step]
+        words = (d.long() << 32) | ci[lo : lo + step].long()
+        runs.append(natural_run_starts(words, granule, n_docs << 32).sum(1))
+        real.append((d < n_docs).sum(1))
+    return torch.cat(runs), torch.cat(real)
+
+
+def bucket_report(shape, ms, reps, runs, real, c, units):
+    """One bucket's line of the per-bucket report: its kernel ms, its
+    queries' natural runs and real pairs, and where their merge buffers
+    lie (csrc/rank.cuh place_buffers)."""
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    sw = smem_words(units, c)
+    both = int((2 * real <= sw).sum())
+    first = int((real <= sw).sum()) - both
+    return {
+        "bucket": shape, "kernel_ms": ms, "kernel_ms_reps": reps,
+        "region": ("shared memory"
+                   if c * 8 <= F._lib().dse_smem_region_bytes()
+                   else "per query"),
+        "buffers_shared_shared": both, "buffers_shared_workspace": first,
+        "buffers_workspace_workspace": int(real.numel()) - both - first,
+        "runs_max": int(runs.max()), "runs_mean": float(runs.float().mean()),
+        "real_max": int(real.max()), "real_mean": float(real.float().mean()),
+    }
+
+
 def time_batch_buckets(eng, batch, k, diff, res, key):
     """One batch's buckets at k, captured from a dispatch in the
     engine's current mode: the path's kernel (the fused kernel, its dlim
     or dv load stage, or the rank-only kernel) against its plain version
     in full, each timed as the median of TIMED_REPS warm runs; the bound
     from the same inputs."""
+    import torch
+
     from document_search_engine_tpu_torch.ops import fused as F
     from document_search_engine_tpu_torch.ops.fused_dv import fused_search_dv
     from document_search_engine_tpu_torch.ops.packed import pack_tables
@@ -976,32 +1302,51 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
 
         packed, out["pack_ms"], out["pack_ms_reps"] = timed(pack_all)
         out["max_workspace_bytes"] = max(
-            (d.numel() * 8 for d, _ci, _p in packed
+            (2 * d.numel() * 8 for d, _ci, _p in packed
              if d.shape[1] * 8 > F._lib().dse_smem_region_bytes()), default=0)
 
-        def run_kernel():
-            return [rank_candidates_kernel(d, ci, 0, block=p["block"],
-                                           s=p["s"], k=p["k"],
-                                           n_docs=p["n_docs"])
-                    for d, ci, p in packed]
+        def run_bucket(i):
+            d, ci, p = packed[i]
+            return rank_candidates_kernel(d, ci, 0, block=p["block"],
+                                          s=p["s"], k=p["k"],
+                                          n_docs=p["n_docs"])
 
         def run_plain():
             return [rank_chunks(d, ci, p) for d, ci, p in packed]
+
+        def stats(i):
+            d, ci, p = packed[i]
+            return (*run_statistics(d, ci, p["block"], p["n_docs"]),
+                    d.shape[1], d.shape[1] // p["block"])
 
         out["bound_ms"], out["bound_by"], out["candidates"] = rank_bound(
             packed, k)
     else:
         smem = F._lib().dse_smem_region_bytes()
         out["max_workspace_bytes"] = max(
-            (c[1][0].shape[0] * c[2]["r_c"] * 128 * 8 for c in calls
+            (2 * c[1][0].shape[0] * c[2]["r_c"] * 128 * 8 for c in calls
              if c[2]["r_c"] * 128 * 8 > smem), default=0)
 
-        def run_kernel():
-            return [
-                fused_search_dv(dv, *t, **p) if dv is not None else
-                F.fused_search(s.post_doc, s.post_val, *t, dlim=dl, **p)
-                for s, t, p, dl, dv in calls
-            ]
+        def run_bucket(i):
+            s, t, p, dl, dv = calls[i]
+            if dv is not None:
+                return fused_search_dv(dv, *t, **p)
+            return F.fused_search(s.post_doc, s.post_val, *t, dlim=dl, **p)
+
+        def stats(i):
+            # what the kernel stores: every posting of the plan, in runs
+            # of one block (doc limits zero a contribution, not a pair)
+            s, t, p, _dl, _dv = calls[i]
+            nb, block = p["n_blocks"], p["block"]
+            step = max(1, (16 << 20) // (nb * block))
+            parts = [run_statistics(
+                *pack_tables(s.post_doc, s.post_val,
+                             *(x[lo : lo + step] for x in t[:3]), p["scale"],
+                             p["clip"], nb, block, p["n_docs"]),
+                block, p["n_docs"]) for lo in range(0, t[0].shape[0], step)]
+            c = p["r_c"] * 128
+            return (torch.cat([r for r, _n in parts]),
+                    torch.cat([n for _r, n in parts]), c, min(nb, c))
 
         def run_plain():
             return [plain_chunks(s, t, p, dl, dv)
@@ -1009,11 +1354,29 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
 
         out["bound_ms"], out["bound_by"], out["real_postings"] = (
             fused_bound(calls))
+    def run_kernel():
+        return [run_bucket(i) for i in range(len(calls))]
+
     got, out["kernel_ms"], out["kernel_ms_reps"] = timed(run_kernel)
     want, out["plain_ms"], out["plain_ms_reps"] = timed(run_plain)
     for i, ((gv, gd), (wv, wd)) in enumerate(zip(got, want)):
         diff.check(gv, wv, f"{key} bucket {i} vals")
         diff.check(gd, wd, f"{key} bucket {i} docs")
+    del got, want
+    # where the kernel's time sits: each bucket alone, with its queries'
+    # natural runs and real pairs
+    out["per_bucket"] = []
+    for i, shape in enumerate(out["buckets"]):
+        _o, ms, reps = timed(lambda: run_bucket(i))
+        out["per_bucket"].append(bucket_report(shape, ms, reps, *stats(i)))
+        b = out["per_bucket"][-1]
+        log(f"{key} bucket [nq, n_blocks, block, r_c] {shape}: {ms:.3f} ms, "
+            f"{b['region']}, runs max {b['runs_max']} mean "
+            f"{b['runs_mean']:.2f}, real pairs max {b['real_max']} mean "
+            f"{b['real_mean']:.0f}, buffers shared+shared "
+            f"{b['buffers_shared_shared']}, shared+workspace "
+            f"{b['buffers_shared_workspace']}, workspace "
+            f"{b['buffers_workspace_workspace']}")
     log(f"{key}: one {len(batch)}-query batch at k={k}, {len(calls)} "
         f"buckets, median of {TIMED_REPS} warm runs: kernel "
         f"{out['kernel_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
@@ -1419,9 +1782,10 @@ def phase_paths(eng, batches, base_outs, diffs):
             f"{max(qps):.1f}")
         time_batch_buckets(eng, batches[0], k, diffs[name], r, "batch")
         if scorer == "fused":
-            # buckets whose region still leaves shared memory (128 rows)
+            # buckets that are still given a workspace
             r["workspace_buckets"] = sum(
-                1 for _bq, _nb, _blk, rc in r["batch"]["buckets"] if rc > 128)
+                1 for b in r["batch"]["per_bucket"]
+                if b["region"] == "per query")
         res[name] = r
     eng.scorer, eng.split_rows = None, None
     return res
@@ -1460,11 +1824,13 @@ def main() -> int:
         + so.with_suffix(".log").read_text())
 
     diffs = {name: Diff() for name in KERNELS}
-    n = phase_kernels(device, diffs)
+    m_fused, m_dlim = phase_merge_fused(device, diffs)
+    n = phase_kernels(device, diffs) + m_fused
     log(f"phase 2: {n} fused and dv kernel-vs-plain cases bit-identical")
-    n = phase_split(device, diffs["fused_search_split"])
+    n = phase_split(device, diffs["fused_search_split"]) + m_dlim
     log(f"phase 2: {n} dlim kernel-vs-plain cases bit-identical")
     n = phase_rank(device, diffs["rank_only"])
+    n += phase_merge_rank(device, diffs["rank_only"])
     log(f"phase 2: {n} rank kernel-vs-plain cases bit-identical")
     n = phase_dots(device, diffs["rerank_dots"])
     log(f"phase 2: {n} dots kernel-vs-plain cases bit-identical")

@@ -46,9 +46,9 @@ SLOT_SHIFT = 24
 DST_MASK = (1 << SLOT_SHIFT) - 1
 
 # The kernel's rank stage keeps a top-16 per thread in registers
-# (csrc/rank.cuh kMaxK); 16 < k <= MAX_K takes its large-k branch, which
-# refills a thread's list from the region when it runs dry. Larger k is
-# the plain scorer's (engine/engine.py _batch_step), as in the reference.
+# (csrc/rank.cuh kMaxK); 16 < k <= MAX_K takes its large-k branch, a
+# radix select over the candidates' composites. Larger k is the plain
+# scorer's (engine/engine.py _batch_step), as in the reference.
 SMALL_K = 16
 MAX_K = 128
 
@@ -260,8 +260,9 @@ def _lib():
             fn.restype = i
         lib.dse_error_string.argtypes = [i]
         lib.dse_error_string.restype = ctypes.c_char_p
-        lib.dse_smem_region_bytes.argtypes = []
-        lib.dse_smem_region_bytes.restype = i
+        for fn in (lib.dse_smem_region_bytes, lib.dse_smem_max_bytes):
+            fn.argtypes = []
+            fn.restype = i
         _lib_handle = lib
     return _lib_handle
 
@@ -334,9 +335,12 @@ def launch_fused(
     if nq == 0:
         return vals, docs
     lib = _lib()
+    # two merge buffers a query; the kernel takes a query's slice only
+    # when its real postings do not fit shared memory
     workspace = None
     if r_c * LANES * 8 > lib.dse_smem_region_bytes():
-        workspace = torch.empty(nq * r_c * LANES, dtype=torch.int64, device=dev)
+        workspace = torch.empty(nq * 2 * r_c * LANES, dtype=torch.int64,
+                                device=dev)
     tail = (
         nq, n_blocks, block, s, k, n_docs, scale, clip, r_c, key_bits,
         None if workspace is None else workspace.data_ptr(),

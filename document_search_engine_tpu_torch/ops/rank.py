@@ -59,9 +59,13 @@ def rank_kernel(
     if nq == 0:
         return vals, docs
     lib = _lib()
+    # two merge buffers a query, sized for the worst case (no padding);
+    # the kernel takes a query's slice only when its real pairs do not
+    # fit shared memory
     workspace = None
     if c_total * 8 > lib.dse_smem_region_bytes():
-        workspace = torch.empty(nq * c_total, dtype=torch.int64, device=dev)
+        workspace = torch.empty(nq * 2 * c_total, dtype=torch.int64,
+                                device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dse_rank(
@@ -103,3 +107,132 @@ def rank_candidates_kernel(
         vals = torch.cat([vals, fill], dim=1)
         gids = torch.cat([gids, fill], dim=1)
     return vals, gids
+
+
+# ------------------------------------------------------------------
+# The merge of csrc/rank.cuh, as plain functions that mirror the device
+# code line for line (natural_runs, corank, merge_runs). The kernels
+# cannot run without a card; their index arithmetic can, here. Used by
+# the tests and by chip_smoke.py's run statistics, never by the engine.
+# Words are non-negative int64 (key << 32 | ci), so signed order is the
+# kernel's unsigned order.
+THREADS = 512  # csrc/rank.cuh kThreads
+
+
+def real_lengths(words: torch.Tensor, granule: int, sentinel: int):
+    """(..., C // granule) int64: per aligned granule of the (..., C)
+    rows, the number of words below `sentinel`. A granule is ascending
+    and the sentinel is its largest word, so they are a prefix: one
+    binary search per granule, as the rank-only kernel's load stage."""
+    g = words.reshape(*words.shape[:-1], -1, granule).contiguous()
+    key = torch.full((*g.shape[:-1], 1), sentinel, dtype=words.dtype,
+                     device=words.device)
+    return torch.searchsorted(g, key).squeeze(-1)
+
+
+def natural_run_starts(words: torch.Tensor, granule: int,
+                       sentinel: int | None = None):
+    """(..., C // granule) bool: the granules of the (..., C) rows at
+    which a natural run starts once the sentinel tails are dropped: the
+    non-empty granules whose first word is below the last real word in
+    front of them (rank.cuh natural_runs: a[off - 1] > a[off]), and each
+    row's first non-empty granule. Every granule is ascending; without a
+    sentinel every word is real."""
+    units = words.shape[-1] // granule
+    g = words.reshape(*words.shape[:-1], units, granule)
+    if sentinel is None:
+        lens = torch.full(g.shape[:-1], granule, dtype=torch.int64,
+                          device=words.device)
+    else:
+        lens = real_lengths(words, granule, sentinel)
+    nonempty = lens > 0
+    first = g[..., 0]
+    last = torch.gather(g, -1, (lens - 1).clamp(min=0).unsqueeze(-1))
+    last = last.squeeze(-1)
+    # the last non-empty granule strictly before u, -1 if none
+    idx = torch.arange(units, device=words.device).expand(lens.shape)
+    seen = torch.where(nonempty, idx, torch.full_like(idx, -1))
+    seen = torch.cummax(seen, dim=-1).values
+    prev = torch.cat([torch.full_like(seen[..., :1], -1), seen[..., :-1]], -1)
+    prev_last = torch.gather(last, -1, prev.clamp(min=0))
+    return nonempty & ((prev < 0) | (prev_last > first))
+
+
+def corank(x, y, diag: int) -> int:
+    """Merge path (rank.cuh corank): how many of the first `diag`
+    outputs of merge(x, y) come from x, ties taken from x first."""
+    lx, ly = len(x), len(y)
+    lo, hi = max(0, diag - ly), min(diag, lx)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if x[mid] <= y[diag - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def merge_path_sort(words: torch.Tensor, granule: int,
+                    stretch: int | None = None, sentinel: int | None = None,
+                    threads: int = THREADS):
+    """Sorts one (C,) row the way the kernels do: the real prefix of
+    every granule stored back to back, the table of natural runs, then
+    pairwise merge-path levels in which thread t writes outputs
+    [t * stretch, (t + 1) * stretch) (default: the kernel's odd
+    ceil(n / threads) | 1). Returns (sorted real words (n,) int64, the
+    number of natural runs, the number of levels)."""
+    w = words.tolist()
+    c = len(w)
+    assert c % granule == 0
+    if sentinel is None:
+        lens = [granule] * (c // granule)
+    else:
+        lens = real_lengths(words, granule, sentinel).tolist()
+    a, unit_off = [], []
+    for u, ln in enumerate(lens):
+        unit_off.append(len(a))
+        a.extend(w[u * granule : u * granule + ln])
+    n = len(a)
+    unit_off.append(n)
+    # natural_runs: non-empty units where order breaks
+    off = [o for u, o in enumerate(unit_off[:-1])
+           if unit_off[u + 1] > o and (o == 0 or a[o - 1] > a[o])]
+    n_runs = len(off)
+    off.append(n)
+    if stretch is None:
+        stretch = -(-n // threads) | 1
+    src, dst, levels = a, [None] * n, 0
+    wd = 1
+    while wd < n_runs:
+        for t in range(threads):
+            p = min(n, t * stretch)
+            p_end = min(n, p + stretch)
+            while p < p_end:
+                lo, hi = 0, (n_runs - 1) // (2 * wd)
+                while lo < hi:
+                    mid = (lo + hi + 1) >> 1
+                    if off[mid * 2 * wd] <= p:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                g = lo * 2 * wd
+                gs = off[g]
+                gm = off[min(g + wd, n_runs)]
+                ge = off[min(g + 2 * wd, n_runs)]
+                x, y = src[gs:gm], src[gm:ge]
+                stop = min(p_end, ge)
+                i = corank(x, y, p - gs)
+                j = p - gs - i
+                while p < stop:
+                    if j >= len(y) or (i < len(x) and x[i] <= y[j]):
+                        dst[p] = x[i]
+                        i += 1
+                    else:
+                        dst[p] = y[j]
+                        j += 1
+                    p += 1
+        assert threads * stretch >= n
+        src, dst = dst, [None] * n
+        wd <<= 1
+        levels += 1
+    return torch.tensor(src, dtype=torch.int64), n_runs, levels

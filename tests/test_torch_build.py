@@ -29,6 +29,10 @@ from document_search_engine_tpu_torch.index.csr import (
     merge_stats as port_merge_stats,
 )
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 DEVICE_FIELDS = (
     "indptr", "row_start", "post_doc", "post_val", "post_tf", "dl",
     "alive", "inv_norm",

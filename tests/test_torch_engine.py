@@ -10,6 +10,7 @@ not ported yet raise NotImplementedError. Each package's engine is
 configured with its own package's IndexConfig."""
 import numpy as np
 import pytest
+import torch
 
 from document_search_engine_tpu.config import IndexConfig, ScoringConfig
 from document_search_engine_tpu.corpus.synth import synth_corpus, synth_queries
@@ -23,6 +24,10 @@ from document_search_engine_tpu_torch.index.convert import (
     DEVICE_FIELDS,
     segment_from_reference,
 )
+
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
 
 
 def _toy(seed=0, n_docs=120):

@@ -19,6 +19,11 @@ from document_search_engine_tpu_torch.ops.packed import (
     search_packed_tables as port_tables,
 )
 from test_packed import make_aligned
+from test_torch_merge_model import chip_smoke
+
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
 
 SCALE = float(np.float32(2.0**16))
 CLIP = float(np.float32(65075262.0))
@@ -47,9 +52,9 @@ def _case(seed, n_terms, n_docs, max_len, nq, s):
 
 @pytest.mark.parametrize("k", [1, 10, 16, 17, 64, 128])
 def test_plain_version_matches_pallas_kernel(k):
-    n_docs, nq, s, block = 2000, 4, 4, 256
+    n_docs, nq, s, block = 2000, 3, 4, 128
     d2, v2, row_start, indptr, rows, coeff = _case(
-        40 + k, 12, n_docs, 300, nq, s
+        40 + k, 12, n_docs, 200, nq, s
     )
     lens = np.where(coeff > 0, indptr[rows + 1] - indptr[rows], 0)
     need = int((-(-lens // block)).sum(1).max())
@@ -110,3 +115,41 @@ def test_plain_tables_match_xla_twin_with_doc_base(doc_base):
     )
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_g.numpy(), np.asarray(want_g))
+
+
+def test_merge_plans_match_pallas_kernel():
+    """Plans of the kind chip_smoke.py aims at the merge on the card, at a
+    tiny size (regions of 16 rows): every query's blocks in reverse
+    order, so that the doc order breaks at every block; one posting
+    beside a few hundred; the same term in every slot (equal docs in s
+    runs). The plain version equals the reference's kernel on them."""
+    rng = np.random.default_rng(23)
+    n_docs, s, block, k = 3000, 4, 128, 10
+    indptr, row_start, d2, v2 = chip_smoke.csr_from_lens(
+        rng, [300, 1, 200, 280], n_docs, n_docs)
+    rows = np.array([[0, 1, 2, 3], [0, 0, 0, 0], [1, 3, 1, 2], [2, 2, 1, 1]],
+                    np.int32)
+    coeff = (rng.random(rows.shape) + 0.1).astype(np.float32)
+    coeff[3, 0] = 0.0
+    nb = 8
+    t = torch.from_numpy
+    tabs = port_fused.expand_plan_tables(
+        t(row_start), t(indptr), t(rows), t(coeff.view(np.int32)), nb, block)
+    tabs = chip_smoke.reorder_blocks(tabs, block, rng, True, 0.0)
+    r_c = chip_smoke.tight_rc(tabs[1], block)
+    assert r_c <= 16
+    sr, rm, ab, dst = (np.asarray(x) for x in tabs)
+    want_v, want_d = ref_fused.fused_search_pallas(
+        jnp.asarray(d2), jnp.asarray(v2), jnp.asarray(sr), jnp.asarray(rm),
+        jnp.asarray(ab), jnp.asarray(dst), n_blocks=nb, block=block, s=s,
+        k=k, n_docs=n_docs, scale=SCALE, clip=CLIP, r_c=r_c,
+        q_stack=ref_fused.pick_stack(len(rows), r_c), interpret=True,
+    )
+    got_v, got_d = port_fused.fused_search(
+        t(d2), t(v2), *tabs, n_blocks=nb, block=block, s=s, k=k,
+        n_docs=n_docs, scale=SCALE, clip=CLIP, r_c=r_c,
+        key_bits=port_fused.key_bits_for(s, n_docs),
+    )
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    assert (got_v[:, 0] > 0).all()

@@ -22,6 +22,10 @@ from document_search_engine_tpu_torch.ops import fused_dv as port_dv
 from test_fused_pallas import _csr
 from test_packed import make_aligned
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 SCALE = float(np.float32(2.0**16))
 CLIP = float(np.float32(65075262.0))
 
@@ -49,10 +53,12 @@ def test_interleave_planes_matches_reference():
      (9, 1024, 17, 0.4), (13, 4096, 10, 0.0)],
 )
 def test_fused_search_dv_matches_pallas_kernel(seed, block, k, missing):
-    """The shapes of tests/test_fused_dv.py: blocks 256 to 4096, missing
-    slots, empty queries, k 17 through the large-k branch."""
-    rng, indptr, d2, v2, row_start = _planes(seed, 24, 5000, 3000)
-    nq, s = 8, 4
+    """The blocks of tests/test_fused_dv.py, 256 to 4096, over rows of up
+    to three blocks (at most 1,500 postings), missing slots, empty
+    queries, k 17 through the large-k branch."""
+    rng, indptr, d2, v2, row_start = _planes(seed, 24, 5000,
+                                             min(1500, 3 * block))
+    nq, s = 6, 4
     rows = rng.integers(0, 24, (nq, s)).astype(np.int32)
     coeff = (rng.random((nq, s)) * 1.5).astype(np.float32)
     coeff[rng.random((nq, s)) < missing] = 0.0

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "document_search_engine_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "document_search_engine_tpu")

@@ -13,6 +13,10 @@ from document_search_engine_tpu_torch.ops import fused as port_fused
 from document_search_engine_tpu_torch.ops import schedule as port_schedule
 from test_packed import make_aligned
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 
 def _fuzz_csr(rng):
     n_terms = int(rng.integers(5, 60))

@@ -26,6 +26,11 @@ from document_search_engine_tpu_torch.ops import rank as port_rank
 from document_search_engine_tpu_torch.ops.packed import pack_tables
 from test_packed import make_aligned
 from test_rank_pallas import make_block_sorted_rows
+from test_torch_merge_model import chip_smoke
+
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
 
 SCALE = float(np.float32(2.0**16))
 CLIP = float(np.float32(65075262.0))
@@ -56,6 +61,33 @@ def test_rank_candidates_kernel_matches_rank_pallas(n_blocks, block, s,
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         assert (got[0][0] == -1).all()
+
+
+def test_merge_rows_match_rank_pallas():
+    """The rows chip_smoke.py aims at the merge on the card (one run, a
+    break at every run, unequal runs, sentinel runs in between, equal
+    docs in 8 runs, exactly k candidates, crowded winners), at C = 2,048:
+    the plain version equals the reference's kernel on them, so the card
+    is held against the reference's answers."""
+    c, run, n_docs = 2048, 256, 8192
+    names, d, ci, s = chip_smoke.merge_rank_rows(
+        np.random.default_rng(11), c, run, n_docs)
+    for k in (16, 64):
+        want = rank_candidates_pallas(
+            jnp.asarray(d), jnp.asarray(ci), jnp.int32(0), block=run, s=s,
+            k=k, n_docs=n_docs, interpret=True,
+        )
+        got = port_rank.rank_candidates_kernel(
+            torch.from_numpy(d), torch.from_numpy(ci), 0, block=run, s=s,
+            k=k, n_docs=n_docs,
+        )
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    hits = (got[0] > 0).sum(1).tolist()
+    for kk in chip_smoke.MERGE_KS:
+        row = names.index(f"exactly {kk} candidates")
+        assert hits[row] == min(kk, 64)
+    assert hits[names.index("five candidates")] <= 5
 
 
 def test_rank_kernel_contract():

@@ -30,6 +30,10 @@ from document_search_engine_tpu_torch.index.convert import (
 )
 from document_search_engine_tpu_torch.ops import rerank as port_rerank
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 
 def _random_csr(seed, n_terms, n_docs, max_len):
     rng = np.random.default_rng(seed)

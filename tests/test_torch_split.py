@@ -29,6 +29,10 @@ from document_search_engine_tpu_torch.ops import schedule as port_schedule
 from document_search_engine_tpu_torch.ops.packed import search_packed_tables
 from test_packed import make_aligned
 
+# the suite runs several workers on shared cores: one thread each keeps
+# torch's intra-op pools from fighting over them
+torch.set_num_threads(1)
+
 SCALE = float(np.float32(2.0**16))
 CLIP = float(np.float32(65075262.0))
 P = 8
