@@ -35,9 +35,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal docs in 8 runs; real pairs one under, at and one over each
    shared-memory capacity (both merge buffers, the first only); exactly
    k candidates and fewer; winners side by side in one warp's stretch.
-   The rerank dots: random int8 tables at dim {64, 256} and K {16, 64,
-   128}, with dead (-1) and repeated gids. Results must be
-   bit-identical.
+   Cases aimed at the fused kernel's load stage (phase_load_fused), for
+   fused, dv and dlim, every k of {1, 10, 16, 17, 64, 128}, kb > 0 and
+   kb = 0, each structure at three sizes so that its queries' merge
+   buffers lie in shared memory (both; the first only) and in the
+   workspace: rem tails not a multiple of 4, blocks skipped between real ones,
+   n_blocks 128, the last term's rows ending at the plane's last row (or
+   the dv plane's pad rows), exactly c real pairs, doc-range pieces that
+   start below d_lo, an empty query in each, and r_c on each side of each
+   thread-count threshold. The rerank dots: random int8 tables at dim
+   {64, 256} and K {16, 64, 128}, with dead (-1) and repeated gids.
+   Results must be bit-identical.
 3. Parity on the card: SearchEngine(device="cuda") equals the frozen CPU
    oracle in ids and integer scores (bm25 and tfidf, k up to 200), in
    the default mode and in each of scorer "xla_rank", scorer "fused_dv"
@@ -55,7 +63,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    more passes. One batch's buckets are then compared in full, kernel
    against plain version, and timed as the median of 5 warm runs: all
    together, and each bucket alone with its queries' natural runs, real
-   pairs and buffer placement ("per_bucket", here and in phases 5, 6).
+   pairs, buffer placement, thread count and resident blocks an SM
+   ("per_bucket", here and in phases 5, 6).
 5. The rerank path at full size, on phase 4's index: the device
    embedding table (dim 256) is built and timed, then search_rerank runs
    over the same 4 batches (k=10, 64 candidates); the large-k fused
@@ -211,10 +220,12 @@ def fused_name(k: int) -> str:
 
 
 def check_fused(device, diffs, d2, v2, tabs, nb, block, s, k, n_docs, rc,
-                kb, what) -> int:
+                kb, what, cut=None) -> int:
     """One fused_search call, and one fused_search_dv call over the
     interleaved plane of the same planes, each against its plain
-    version; returns hits."""
+    version; returns hits. With `cut` the kernels read planes cut after
+    that many rows (the plain versions, which read whole blocks, keep
+    them)."""
     import torch
 
     from document_search_engine_tpu_torch.ops import fused as F
@@ -223,11 +234,13 @@ def check_fused(device, diffs, d2, v2, tabs, nb, block, s, k, n_docs, rc,
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs,
               scale=SCALE, clip=CLIP)
-    got = F.fused_search(t(d2), t(v2), *tabs, r_c=rc, key_bits=kb, **kw)
+    got = F.fused_search(t(d2[:cut]), t(v2[:cut]), *tabs, r_c=rc,
+                         key_bits=kb, **kw)
     want = plain_on(device, d2, v2, *tabs[:3], nb, block, s, k, n_docs)
-    dv = FD.interleave_planes(t(d2), t(v2))
+    dv = FD.interleave_planes(t(d2[:cut]), t(v2[:cut]))
     got_dv = FD.fused_search_dv(dv, *tabs, r_c=rc, key_bits=kb, **kw)
-    want_dv = FD.fused_search_dv_plain(dv, *tabs[:3], **kw)
+    want_dv = FD.fused_search_dv_plain(
+        FD.interleave_planes(t(d2), t(v2)), *tabs[:3], **kw)
     torch.cuda.synchronize()
     diff = diffs[fused_name(k)]
     diff.check(got[0], want[0], what + " vals")
@@ -529,9 +542,10 @@ def rows_with_real_pairs(rng, c, run, n_docs, counts):
 
 def smem_words(units, c) -> int:
     """The 8-byte words of dynamic shared memory behind the run table of
-    a launch over regions of c pairs in `units` stored units
+    a rank-only launch over regions of c pairs in `units` stored units
     (csrc/rank.cuh region_smem_bytes): a query whose real pairs fit
-    twice keeps both merge buffers there, once the first."""
+    twice keeps both merge buffers there, once the first. The fused
+    kernel's counterpart is ops/fused.py buffer_words."""
     from document_search_engine_tpu_torch.ops import fused as F
 
     table = (units + 2) // 2
@@ -648,7 +662,7 @@ def merge_plans(rng, device):
          [[0] * 8, [1] * 8, [0, 1] * 4], ones(3, 8), 512, 5000)
     # real postings around the shared-memory capacity: two terms a query,
     # 4 blocks each, so 8 stored units and regions of 256 rows
-    sw = smem_words(8, 256 * 128)
+    sw = F.buffer_words(256, 8)
     edges = [sw // 2 - 1, sw // 2, sw // 2 + 1, sw - 1, sw, sw + 1]
     lens = [m for n in edges for m in (n // 2, n - n // 2)]
     nb = plan(f"real postings {edges} around the shared-memory capacity",
@@ -726,6 +740,174 @@ def phase_merge_fused(device, diffs, seed: int = 4):
                 n_dlim += 1
         log(f"kernel == plain: merge: {what}, r_c={rc}, k in {MERGE_KS}, "
             f"both key widths; fused, dv and dlim")
+    return n_fused, n_dlim
+
+
+def load_plans(rng, device):
+    """Plans aimed at the fused kernel's load stage, as (what, d2, v2,
+    plan tables, n_blocks, block, s, n_docs, region sizes r_c to run,
+    doc limits or None, rows the kernel's planes are cut after or None).
+    Each structure comes at three sizes, so that its queries' merge
+    buffers lie in shared memory (both, or the first only) and in the
+    workspace; every plan has an empty query."""
+    import torch
+
+    from document_search_engine_tpu_torch.index import builder as B
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    out = []
+
+    def plan(what, lens, rows, coeff, block, n_docs, extra=0, skip=0.0,
+             rcs=None, cut_term=None):
+        rows = np.asarray(rows, np.int32)
+        coeff = np.asarray(coeff, np.float32).copy()
+        coeff[0] = 0.0
+        indptr, row_start, d2, v2 = csr_from_lens(rng, lens, n_docs, n_docs)
+        lens_q = np.where(coeff > 0, indptr[rows + 1] - indptr[rows], 0)
+        need_b = int((-(-lens_q // block)).sum(1).max())
+        nb = 1 << int(np.ceil(np.log2(max(need_b + extra, 1))))
+        tabs = F.expand_plan_tables(t(row_start), t(indptr), t(rows),
+                                    t(coeff.view(np.int32)), nb, block)
+        if skip:
+            tabs = reorder_blocks(tabs, block, rng, False, skip)
+        cut = None
+        if cut_term is not None:  # the term's last row is the plane's
+            end = int(row_start[cut_term] + lens[cut_term])
+            cut = -(-end // 128)
+        rc = tight_rc(tabs[1], block)
+        if rcs and min(rcs) < rc:
+            raise AssertionError(f"{what}: r_c {rcs} below the tight {rc}")
+        out.append((what, d2, v2, tabs, nb, block, rows.shape[1], n_docs,
+                    rcs or [rc], None, cut))
+
+    ones = lambda nq, s: np.ones((nq, s), np.float32)
+    # sizes: real pairs a query ~ scale * 1,000 (shared memory), ~20,000
+    # (capped regions: the first buffer only), ~40,000 (the workspace)
+    for scale in (1, 20, 40):
+        tag = f" ({scale}k pairs)"
+        lens = (np.array([130, 257, 515, 1023, 7, 1, 2, 3]) * scale) | 1
+        plan("rem tails not a multiple of 4" + tag, lens,
+             rng.integers(0, 8, (6, 4)), ones(6, 4), 1024, 50000 * scale)
+        lens = rng.integers(150, 500, 6) * (2 * scale if scale > 20
+                                            else scale) | 1
+        plan("blocks skipped between real ones" + tag, lens,
+             rng.integers(0, 6, (6, 4)), ones(6, 4), 256, 50000 * scale,
+             extra=8, skip=0.35)
+        # 128 plan blocks, few of them real: the plan scan's four steps
+        plan("n_blocks 128" + tag, [scale * 1000 // 4 - 3] * 4,
+             [[0, 1, 2, 3]] * 3, ones(3, 4), min(128 * scale, 4096),
+             50000 * scale, extra=100)
+        lens = [800 * scale + 1, 1100 * scale + 3, 333 * scale]
+        plan("rows end at the plane's last row" + tag, lens,
+             [[0, 1], [2, 1], [2, 2], [0, 2]], ones(4, 2), 4096,
+             50000 * scale, cut_term=2)
+    # exactly c real pairs: shared memory, the first buffer, the workspace
+    for c in (2048, 16384, 32768):
+        plan(f"n exactly c = {c}", [c, c // 2, c // 2, 100],
+             [[3, 3], [0, 3], [1, 2]],
+             ones(3, 2) * np.float32([[1, 1], [1, 0], [1, 1]]), 4096,
+             4 * c)
+    # r_c on each side of each thread-count threshold
+    rcs = sorted({r for b, _t in F.THREADS_BY_RC if b
+                  for r in (b // 2, b, 2 * b)})
+    plan("regions on each side of the launch-shape thresholds",
+         [300, 400, 77, 500], rng.integers(0, 4, (6, 3)),
+         ones(6, 3), 512, 30000, rcs=rcs)
+    # doc-range pieces whose first row starts below d_lo, at each size
+    for scale in (1, 10, 40):
+        n_docs, block, s, nq, m = 30000 * scale, 4096, 4, 4, 2
+        lens = rng.integers(600, 1200, 6) * scale | 1
+        indptr, row_start, d2, v2 = csr_from_lens(rng, lens, n_docs, n_docs)
+        q_p = B.SPLIT_QUANTILES
+        offs = B.device_row_doc_quantiles(t(d2), t(indptr), t(row_start),
+                                          q_p, n_docs)
+        rows = np.repeat(rng.integers(0, 6, (nq, s)).astype(np.int32), m, 0)
+        coeff = np.ones(rows.shape, np.float32)
+        coeff[:m] = 0.0
+        pno = np.tile(np.arange(m), nq)
+        cols = np.stack([pno * q_p // m, (pno + 1) * q_p // m], 1)
+        offs_h = offs.cpu().numpy()
+        lo = offs_h[rows, cols[:, 0:1]]
+        lens_p = offs_h[rows, cols[:, 1:2]] - (lo - lo % 128)
+        nb = 1 << int(np.ceil(np.log2(int((-(-lens_p // block)).sum(1)
+                                          .max()))))
+        tabs = F.expand_plan_tables(
+            t(row_start), t(indptr), t(rows), t(coeff.view(np.int32)), nb,
+            block, offs_dev=offs, cols=t(cols.astype(np.int32)))
+        dlim = (cols * n_docs // q_p).astype(np.int32).reshape(-1, 1, 2)
+        if not ((lo % 128 != 0) & (coeff > 0)).any():
+            raise AssertionError("no piece starts below its d_lo")
+        out.append((f"doc-range pieces ({scale}k pairs)", d2, v2, tabs, nb,
+                    block, s, n_docs, [tight_rc(tabs[1], block)], t(dlim),
+                    None))
+    return out
+
+
+def load_coverage(tabs, nb, block, rc, seen):
+    """Adds each query's buffer placement (the kernel's decision, from
+    the ops/fused.py mirror) to `seen`."""
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    words = F.buffer_words(rc, nb)
+    for u in F.load_units(*(x.cpu() for x in tabs), block=block, r_c=rc):
+        seen.add(F.placement(int(u["off"][-1]), words))
+
+
+def phase_load_fused(device, diffs, seed: int = 6):
+    """The fused kernel, its dv load stage and its doc-limit load stage on
+    load_plans, every k of MERGE_KS, both key widths; fails unless each
+    structure met every buffer placement. Returns (fused and dv cases,
+    dlim cases)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.packed import (
+        search_packed_tables,
+    )
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n_fused = n_dlim = 0
+    seen = {}  # structure -> the placements its queries met
+    for (what, d2, v2, tabs, nb, block, s, n_docs, rcs, dlim,
+         cut) in load_plans(rng, device):
+        met = seen.setdefault(what.split(" (")[0].split(" = ")[0], set())
+        nq = tabs[0].shape[0]
+        if dlim is None:
+            lim = np.sort(rng.integers(0, n_docs + 1, (nq, 2)), axis=1)
+            lim[1] = (0, n_docs)
+            dlim = t(lim.astype(np.int32).reshape(nq, 1, 2))
+        d2t, v2t = t(d2), t(v2)
+        kw = dict(n_blocks=nb, block=block, s=s, n_docs=n_docs)
+        for rc in rcs:
+            load_coverage(tabs, nb, block, rc, met)
+            for k in MERGE_KS:
+                want = search_packed_tables(d2t, v2t, *tabs[:3], SCALE, CLIP,
+                                            0, dlim=dlim, k=k, **kw)
+                for kb in (F.key_bits_for(s, n_docs), 0):
+                    tag = (f"load: {what} (r_c={rc} threads="
+                           f"{F.launch_threads(rc)} k={k} kb={kb})")
+                    check_fused(device, diffs, d2, v2, tabs, nb, block, s, k,
+                                n_docs, rc, kb, tag, cut=cut)
+                    n_fused += 1
+                    got = F.fused_search(d2t[:cut], v2t[:cut], *tabs,
+                                         scale=SCALE, clip=CLIP, r_c=rc,
+                                         key_bits=kb, dlim=dlim, k=k, **kw)
+                    torch.cuda.synchronize()
+                    diff = diffs["fused_search_split"]
+                    diff.check(got[0], want[0], tag + " dlim vals")
+                    diff.check(got[1], want[1], tag + " dlim docs")
+                    n_dlim += 1
+        log(f"kernel == plain: load: {what}, r_c {rcs}, k in {MERGE_KS}, "
+            f"both key widths; fused, dv and dlim")
+    # every structure in every placement; the threshold regions hold
+    # small queries, in shared memory, at each thread count
+    for what, met in seen.items():
+        if met != {"shared", "first", "workspace"} and "threshold" not in (
+                what):
+            raise AssertionError(f"load: {what} met only {sorted(met)}")
+    log("load cases: every structure met every buffer placement")
     return n_fused, n_dlim
 
 
@@ -1249,13 +1431,13 @@ def run_statistics(d_key, ci, granule, n_docs, chunk_elems=16 << 20):
     return torch.cat(runs), torch.cat(real)
 
 
-def bucket_report(shape, ms, reps, runs, real, c, units):
+def bucket_report(shape, ms, reps, runs, real, c, sw):
     """One bucket's line of the per-bucket report: its kernel ms, its
     queries' natural runs and real pairs, and where their merge buffers
-    lie (csrc/rank.cuh place_buffers)."""
+    lie (csrc/rank.cuh place_buffers; sw words of shared memory behind
+    the launch's table)."""
     from document_search_engine_tpu_torch.ops import fused as F
 
-    sw = smem_words(units, c)
     both = int((2 * real <= sw).sum())
     first = int((real <= sw).sum()) - both
     return {
@@ -1268,6 +1450,23 @@ def bucket_report(shape, ms, reps, runs, real, c, units):
         "runs_max": int(runs.max()), "runs_mean": float(runs.float().mean()),
         "real_max": int(real.max()), "real_mean": float(real.float().mean()),
     }
+
+
+def launch_report(mode, call, k):
+    """A bucket's launch: threads a block and resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; not reported for the
+    rank-only kernel)."""
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.rank import THREADS
+
+    if mode == "xla_rank":
+        return {"threads": THREADS, "blocks_per_sm": None}
+    _seg, _tabs, p, dlim, dv = call
+    threads = F.launch_threads(p["r_c"])
+    load = 2 if dv is not None else int(dlim is not None)
+    return {"threads": threads,
+            "blocks_per_sm": F._lib().dse_fused_blocks_per_sm(
+                load, threads, p["r_c"], p["n_blocks"])}
 
 
 def time_batch_buckets(eng, batch, k, diff, res, key):
@@ -1316,8 +1515,9 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
 
         def stats(i):
             d, ci, p = packed[i]
-            return (*run_statistics(d, ci, p["block"], p["n_docs"]),
-                    d.shape[1], d.shape[1] // p["block"])
+            c = d.shape[1]
+            return (*run_statistics(d, ci, p["block"], p["n_docs"]), c,
+                    smem_words(c // p["block"], c))
 
         out["bound_ms"], out["bound_by"], out["candidates"] = rank_bound(
             packed, k)
@@ -1344,9 +1544,9 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
                              *(x[lo : lo + step] for x in t[:3]), p["scale"],
                              p["clip"], nb, block, p["n_docs"]),
                 block, p["n_docs"]) for lo in range(0, t[0].shape[0], step)]
-            c = p["r_c"] * 128
             return (torch.cat([r for r, _n in parts]),
-                    torch.cat([n for _r, n in parts]), c, min(nb, c))
+                    torch.cat([n for _r, n in parts]), p["r_c"] * 128,
+                    F.buffer_words(p["r_c"], nb))
 
         def run_plain():
             return [plain_chunks(s, t, p, dl, dv)
@@ -1370,7 +1570,9 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
         _o, ms, reps = timed(lambda: run_bucket(i))
         out["per_bucket"].append(bucket_report(shape, ms, reps, *stats(i)))
         b = out["per_bucket"][-1]
+        b.update(launch_report(eng.scorer_mode, calls[i], k))
         log(f"{key} bucket [nq, n_blocks, block, r_c] {shape}: {ms:.3f} ms, "
+            f"{b['threads']} threads, {b['blocks_per_sm']} blocks an SM, "
             f"{b['region']}, runs max {b['runs_max']} mean "
             f"{b['runs_mean']:.2f}, real pairs max {b['real_max']} mean "
             f"{b['real_mean']:.0f}, buffers shared+shared "
@@ -1399,9 +1601,10 @@ def rank_chunks(d_key, ci, p, chunk_elems=64 << 20):
     return torch.cat([v for v, _g in parts]), torch.cat([g for _v, g in parts])
 
 
-def phase_main(device, diffs, sample=1024, seed=0):
-    """Phase 4; returns (results, engine, query batches, the counted
-    run's (ids, scores) per batch)."""
+def main_engine(device, res):
+    """The main path's index (phase 4): the 1M-doc corpus built through
+    SearchEngine.build (its build time, postings and resident bytes into
+    res), and its N_BATCHES query batches. Returns (engine, batches)."""
     import torch
 
     from document_search_engine_tpu_torch import (
@@ -1409,14 +1612,9 @@ def phase_main(device, diffs, sample=1024, seed=0):
         ScoringConfig,
         SearchEngine,
     )
-    from document_search_engine_tpu_torch.analyze import native
     from document_search_engine_tpu_torch.analyze.hashing import TermHasher
-    from document_search_engine_tpu_torch.ops import fused as F
 
-    n_docs, nq, n_batches, k, depth = N_DOCS, NQ, N_BATCHES, K, DEPTH
-    res = {"n_docs": n_docs, "vocab": VOCAB, "nq": nq, "batches": n_batches,
-           "k": k, "depth": depth,
-           "native_analyzer": bool(native.available())}
+    n_docs, nq, n_batches = N_DOCS, NQ, N_BATCHES
     t0 = time.perf_counter()
     tokens, texts = synth_text_batches(n_docs, VOCAB, MEAN_LEN, 125_000)
     log(f"corpus: {n_docs} docs generated in "
@@ -1448,12 +1646,28 @@ def phase_main(device, diffs, sample=1024, seed=0):
     )
     batches = make_batches(df_by_row, tokens_by_row, nq, TERMS_PER_QUERY,
                            n_batches)
+    return eng, batches
+
+
+def phase_main(device, diffs, sample=1024, seed=0):
+    """Phase 4; returns (results, engine, query batches, the counted
+    run's (ids, scores) per batch)."""
+    import torch
+
+    from document_search_engine_tpu_torch.analyze import native
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    n_docs, nq, n_batches, k, depth = N_DOCS, NQ, N_BATCHES, K, DEPTH
+    res = {"n_docs": n_docs, "vocab": VOCAB, "nq": nq, "batches": n_batches,
+           "k": k, "depth": depth,
+           "native_analyzer": bool(native.available())}
+    eng, batches = main_engine(device, res)
     eng.preplan(batches, k=k)
     t0 = time.perf_counter()
     eng.warmup(queries=batches[0], k=k)  # builds the kernel library
+    sync = torch.cuda.synchronize
     sync()
     res["warmup_s"] = time.perf_counter() - t0
-
     # the counted main-path run; cell membership recorded per batch
     rec, restore = host_timers(eng)
     F.fused_search.launches = 0
@@ -1791,6 +2005,62 @@ def phase_paths(eng, batches, base_outs, diffs):
     return res
 
 
+def thread_sweep(threads=(256, 1024)):
+    """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
+    each bucket of one main-path batch (fused at k = 10 and 64, the dv
+    plane, split_rows 128) at every thread count in `threads` (each must
+    be one the library was built for), against the plain version, timed
+    as the median of TIMED_REPS warm runs, with resident blocks an SM.
+    Prints one JSON line a bucket and thread count:
+
+        python3 -c "import chip_smoke; chip_smoke.thread_sweep()"
+    """
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.fused_dv import fused_search_dv
+
+    if not torch.cuda.is_available():
+        raise SystemExit("thread_sweep: CUDA is not available")
+    print(f"card: {card_line()}", flush=True)
+    eng, batches = main_engine(torch.device("cuda"), {})
+    rule = F.launch_threads
+    diff = Diff()
+    try:
+        for scorer, split, k in (("fused", None, K), ("fused_dv", None, K),
+                                 ("fused", 128, K),
+                                 ("fused", None, CANDIDATES)):
+            eng.scorer, eng.split_rows = scorer, split
+            eng.preplan(batches, k=k)
+            for seg, t, p, dl, dv in bucket_calls(
+                    capture_batch(eng, batches[0], k)):
+                want = plain_chunks(seg, t, p, dl, dv)
+
+                def run():
+                    if dv is not None:
+                        return fused_search_dv(dv, *t, **p)
+                    return F.fused_search(seg.post_doc, seg.post_val, *t,
+                                          dlim=dl, **p)
+
+                load = 2 if dv is not None else int(dl is not None)
+                for n in threads:
+                    F.launch_threads = lambda r_c, n=n: n
+                    got, ms, reps = timed(run)
+                    diff.check(got[0], want[0], "thread sweep vals")
+                    diff.check(got[1], want[1], "thread sweep docs")
+                    print(json.dumps({
+                        "scorer": scorer, "split_rows": split, "k": k,
+                        "bucket": [int(t[0].shape[0]), p["n_blocks"],
+                                   p["block"], p["r_c"]],
+                        "threads": n, "ms": ms, "ms_reps": reps,
+                        "blocks_per_sm": F._lib().dse_fused_blocks_per_sm(
+                            load, n, p["r_c"], p["n_blocks"]),
+                    }), flush=True)
+    finally:
+        F.launch_threads = rule
+        eng.scorer, eng.split_rows = None, None
+
+
 def kernel_entry(name, launches, diff, ms, plain_ms, bound_ms, bound_by,
                  library_ms):
     source, replaces = KERNELS[name]
@@ -1819,15 +2089,17 @@ def main() -> int:
     t0 = time.perf_counter()
     so = F.build_kernels()
     build_s = time.perf_counter() - t0
-    F._lib()
+    if F._lib().dse_smem_max_bytes() != F.SMEM_MAX_BYTES:
+        raise AssertionError("ops/fused.py SMEM_MAX_BYTES != the library's")
     log(f"kernel library built in {build_s:.1f}s: {so.name}\n"
         + so.with_suffix(".log").read_text())
 
     diffs = {name: Diff() for name in KERNELS}
+    l_fused, l_dlim = phase_load_fused(device, diffs)
     m_fused, m_dlim = phase_merge_fused(device, diffs)
-    n = phase_kernels(device, diffs) + m_fused
+    n = phase_kernels(device, diffs) + m_fused + l_fused
     log(f"phase 2: {n} fused and dv kernel-vs-plain cases bit-identical")
-    n = phase_split(device, diffs["fused_search_split"]) + m_dlim
+    n = phase_split(device, diffs["fused_search_split"]) + m_dlim + l_dlim
     log(f"phase 2: {n} dlim kernel-vs-plain cases bit-identical")
     n = phase_rank(device, diffs["rank_only"])
     n += phase_merge_rank(device, diffs["rank_only"])

@@ -39,13 +39,18 @@
 //   region is crossed once a level (about 3 times), not once a pass.
 // * Run-sums walk back at most s - 1 positions from each run end, the
 //   window the plain scorer (ops/packed.py rank_candidates) sums over.
-// * k <= 16: a sorted top-16 per thread in registers during one scan of
-//   the merged pairs, then k rounds of a block-wide maximum.
-// * k <= 128: each run end's composite is computed once, into the
-//   buffer the merge left free; a radix select (8 bits a pass) finds the
-//   k-th largest composite, and the k survivors are ranked by counting.
+// * block_topk (the rank-only kernel's k <= 16): a sorted top-16 per
+//   thread in registers during one scan of the merged pairs, then k
+//   rounds of a block-wide maximum.
+// * block_topk_large (every k <= 128 of the fused kernel, k 17..128 of
+//   the rank-only kernel): each run end's composite is computed once,
+//   into the buffer the merge left free; a radix select (8 bits a pass)
+//   finds the k-th largest composite, and the k survivors are ranked by
+//   counting.
 //   The cost is at most 8 passes over the candidates and ~30 barriers
-//   whatever k is, not two block barriers a rank and region rescans.
+//   whatever k is, not two block barriers a rank and region rescans, and
+//   no register list: at k = 10 it is faster than block_topk on the
+//   small regions, whose blocks it lets share an SM (PERF.md).
 //
 // Bound on this card: the serial merges, n / threads steps a level of
 // 8-byte reads at scattered addresses (bank conflicts in shared memory,
@@ -62,7 +67,8 @@ typedef unsigned long long u64;
 constexpr int kLanes = 128;  // one plane row
 constexpr int kMaxK = 16;    // top-k held in registers per thread
 constexpr int kMaxLargeK = 128;
-// One query's region per thread block of kThreads threads.
+// The rank-only kernel's thread block (one query's region); the fused
+// kernel takes its thread count as a template parameter.
 constexpr int kThreads = 512;
 // Dynamic shared memory a launch may ask for (the card gives a block
 // 227 KB; the rest is the rank stage's static tables), and the largest
@@ -354,7 +360,7 @@ __device__ void block_topk_large(const u64* a, int n, u64* comp, int s, int k,
     u64 prefix = 0ull;
     int need = k;  // the rank still sought among the matching composites
     for (int shift = 56; shift >= 0; shift -= 8) {
-      if (tid < 256) hist[tid] = 0;
+      for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
       __syncthreads();
       const u64 fixed = shift == 56 ? 0ull : (~0ull << (shift + 8));
       for (int i = tid; i < m; i += THREADS) {

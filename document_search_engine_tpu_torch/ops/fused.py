@@ -7,7 +7,10 @@ of the CUDA kernel that replaces its Pallas kernel `_fused_kernel`
 (with its `dlim` doc-range branch) and the rank stage of
 `ops/rank_pallas.py merge_rank_body`, both its k <= 16 branch and its
 k 17..128 tournament branch (csrc/fused_search.cu, csrc/rank.cuh). The
-same kernel's interleaved-plane load stage serves ops/fused_dv.py.
+same kernel's interleaved-plane load stage serves ops/fused_dv.py. The
+launch's thread count follows the bucket's region (launch_threads), and
+the kernel's plan table and load stage have plain mirrors here
+(load_units, load_region, placement) for the CPU tests.
 
 The kernel library (every csrc/*.cu, the rank-only kernel of ops/rank.py
 and the rerank dots of ops/rerank.py included) is compiled by nvcc at
@@ -45,12 +48,23 @@ GRANULE_ROWS = 1
 SLOT_SHIFT = 24
 DST_MASK = (1 << SLOT_SHIFT) - 1
 
-# The kernel's rank stage keeps a top-16 per thread in registers
-# (csrc/rank.cuh kMaxK); 16 < k <= MAX_K takes its large-k branch, a
-# radix select over the candidates' composites. Larger k is the plain
-# scorer's (engine/engine.py _batch_step), as in the reference.
+# The kernel serves k <= MAX_K; larger k is the plain scorer's
+# (engine/engine.py _batch_step), as in the reference. Launches at
+# k <= SMALL_K count in fused_search.launches (the reference's k <= 16
+# branch), larger ones in fused_search.launches_large_k.
 SMALL_K = 16
 MAX_K = 128
+
+# The launch's thread count (csrc/fused_search.cu THREADS) by the
+# bucket's region rows r_c: the first entry whose bound holds. Chosen per
+# bucket shape on the card (PERF.md): 256 threads run 6 blocks an SM at
+# r_c 16 and 3 at r_c 32 (shared memory is the limit), regions of 64
+# rows and more take one block an SM and spread their merge over 1024.
+THREADS_BY_RC = ((32, 256), (None, 1024))
+
+# The most dynamic shared memory a launch asks for (csrc/rank.cuh
+# kSmemMaxBytes; the library's dse_smem_max_bytes()).
+SMEM_MAX_BYTES = 224 * 1024
 
 
 def key_bits_for(s: int, n_docs: int) -> int:
@@ -150,6 +164,135 @@ def expand_plan_tables(
     )
 
 
+# ------------------------------------ thread count and load-stage mirror
+def launch_threads(r_c: int) -> int:
+    """The thread count of a launch over regions of r_c rows
+    (THREADS_BY_RC)."""
+    return next(t for bound, t in THREADS_BY_RC
+                if bound is None or r_c <= bound)
+
+
+def plan_table_bytes(units: int) -> int:
+    """csrc/fused_search.cu plan_table_bytes: the kernel's per-query plan
+    table (off and q4 with units + 1 entries, src, coeff and slot with
+    units), int32, rounded to 16 bytes."""
+    return ((5 * units + 2) * 4 + 15) // 16 * 16
+
+
+def fused_smem_bytes(r_c: int, n_blocks: int) -> int:
+    """Dynamic shared memory of a launch over regions of r_c rows in
+    n_blocks plan blocks: the plan table and two merge buffers of c =
+    r_c * 128 pairs, capped at SMEM_MAX_BYTES."""
+    c = r_c * LANES
+    return min(plan_table_bytes(min(n_blocks, c)) + 16 * c, SMEM_MAX_BYTES)
+
+
+def buffer_words(r_c: int, n_blocks: int) -> int:
+    """The 8-byte words of that shared memory behind the plan table."""
+    c = r_c * LANES
+    return (fused_smem_bytes(r_c, n_blocks)
+            - plan_table_bytes(min(n_blocks, c))) // 8
+
+
+def placement(n: int, words: int) -> str:
+    """csrc/rank.cuh place_buffers for a query of n real pairs and
+    `words` words of shared memory: "shared" (both merge buffers there),
+    "first" (the second in the workspace) or "workspace" (both)."""
+    if 2 * n <= words:
+        return "shared"
+    return "first" if n <= words else "workspace"
+
+
+def load_units(srcrow, rem, abits, dstrow, *, block: int, r_c: int):
+    """The kernel's plan table (csrc/fused_search.cu scan_plan), per
+    query: a dict of int64 numpy arrays over its units, the plan blocks
+    that hold a posting, in plan order: off and q4 (units + 1 entries:
+    where each unit's pairs begin in the region, and its int4 words of
+    one plane in front of it; the last entry is the total), src (first
+    plane row), coeff (f32 bits) and slot. A block's valid count is
+    min(max(rem, 0), block), 0 when skipped, cut where the region's
+    r_c * 128 pairs end."""
+    c = r_c * LANES
+    nq = srcrow.shape[0]
+    sr, rm, ab, ds = (np.asarray(t).reshape(nq, -1).astype(np.int64)
+                      for t in (srcrow, rem, abits, dstrow))
+    v = np.where(sr >= 0, np.clip(rm, 0, block), 0)
+    incl = np.cumsum(v, axis=1)
+    at = np.minimum(incl - v, c)
+    valid = np.minimum(incl, c) - at
+    out = []
+    for q in range(nq):
+        live = valid[q] > 0
+        out.append({
+            "off": np.append(at[q][live], min(int(incl[q, -1]), c)
+                             if incl.shape[1] else 0),
+            "q4": np.concatenate([[0], np.cumsum((valid[q][live] + 3) // 4)]),
+            "src": sr[q][live], "coeff": ab[q][live],
+            "slot": (ds[q][live] & 0xFFFFFFFF) >> SLOT_SHIFT,
+        })
+    return out
+
+
+def _candidates(d, v, coeff, slot, scale, clip, key_bits, dlim):
+    """(key << 32) | ci int64 words of postings (docs d, value bits v,
+    their units' coefficient bits and slots): csrc/fused_search.cu
+    make_candidate, in f32 as ops/packed.py pack_tables computes ci."""
+    a = torch.from_numpy(np.asarray(coeff, np.int32)).view(torch.float32)
+    val = torch.from_numpy(np.asarray(v, np.int32)).view(torch.float32)
+    ci = torch.round((a * val) * torch.tensor(scale, dtype=torch.float32))
+    ci = ci.clamp(0.0, clip).to(torch.int64).numpy()
+    d = np.asarray(d, np.int64)
+    if dlim is not None:
+        ci = np.where((d >= dlim[0]) & (d < dlim[1]), ci, 0)
+    key = (d << key_bits) | np.asarray(slot, np.int64) if key_bits else d
+    return (key << 32) | ci
+
+
+def load_region(planes, srcrow, rem, abits, dstrow, dlim=None, *,
+                block: int, r_c: int, key_bits: int, scale: float,
+                clip: float):
+    """What the kernel's load stage leaves for the rank stage, per query:
+    (words, off), the (n,) int64 candidates (key << 32) | ci of every
+    unit's real postings, each unit behind the previous one, and the
+    unit offsets. planes is (post_doc, post_val) (X, 128) or (post_dv,)
+    (X + 8, 256). Every int4 word g of the flattened index maps to its
+    unit u (q4[u] <= g < q4[u + 1]) and to lane 4 (g - q4[u]) of the
+    unit's rows, read from the two planes or from the halves of one dv
+    row, as the kernel's threads do."""
+    dv = len(planes) == 1
+    flat = [np.asarray(p).reshape(-1) for p in planes]
+    lim = None if dlim is None else np.asarray(dlim).reshape(-1, 2)
+    out = []
+    for q, t in enumerate(load_units(srcrow, rem, abits, dstrow,
+                                     block=block, r_c=r_c)):
+        off, q4, src = t["off"], t["q4"], t["src"]
+        g = np.repeat(np.arange(int(q4[-1])), 4)
+        lane = np.tile(np.arange(4), int(q4[-1]))
+        u = np.searchsorted(q4, g, side="right") - 1
+        e4 = g - q4[u]
+        e = 4 * e4 + lane
+        if dv:
+            at = (src[u] + e4 // 32) * 2 * LANES + (e4 % 32) * 4 + lane
+            last = at + LANES
+        else:
+            at = last = src[u] * LANES + e
+        # the kernel reads whole int4 words, past a unit's valid count too
+        if len(at) and int(last.max()) >= flat[0].size:
+            raise IndexError(f"query {q}: an int4 read ends past the plane")
+        keep = e < off[u + 1] - off[u]
+        u, e, at = u[keep], e[keep], at[keep]
+        if dv:
+            d, v = flat[0][at], flat[0][at + LANES]
+        else:
+            d, v = flat[0][at], flat[1][at]
+        words = np.zeros(int(off[-1]), np.int64)
+        words[off[u] + e] = _candidates(
+            d, v, t["coeff"][u], t["slot"][u], scale, clip, key_bits,
+            None if lim is None else lim[q])
+        out.append((words, off))
+    return out
+
+
 # ---------------------------------------------------------------- build
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -235,16 +378,17 @@ def _lib():
             p, p, p, p, p, p, p,  # planes, plan tables, dlim (or None)
             i, i, i, i, i, i,  # nq, n_blocks, block, s, k, n_docs
             f, f,  # scale, clip
-            i, i,  # r_c, key_bits
+            i, i, i,  # r_c, key_bits, threads
             p, p, p, p,  # workspace, vals, docs, stream
         ]
         lib.dse_fused_search_dv.argtypes = [
             p, p, p, p, p,  # dv plane, plan tables
             i, i, i, i, i, i,  # nq, n_blocks, block, s, k, n_docs
             f, f,  # scale, clip
-            i, i,  # r_c, key_bits
+            i, i, i,  # r_c, key_bits, threads
             p, p, p, p,  # workspace, vals, docs, stream
         ]
+        lib.dse_fused_blocks_per_sm.argtypes = [i, i, i, i]
         lib.dse_rank.argtypes = [
             p, p,  # d_key, ci
             i, i, i, i, i, i,  # nq, c, run, s, k, n_docs
@@ -256,7 +400,8 @@ def _lib():
             p, p, p,  # dots, cand_ssq, stream
         ]
         for fn in (lib.dse_fused_search, lib.dse_fused_search_dv,
-                   lib.dse_rank, lib.dse_rerank_dots):
+                   lib.dse_fused_blocks_per_sm, lib.dse_rank,
+                   lib.dse_rerank_dots):
             fn.restype = i
         lib.dse_error_string.argtypes = [i]
         lib.dse_error_string.restype = ctypes.c_char_p
@@ -294,7 +439,8 @@ def launch_fused(
 ):
     """Checks the arguments and launches the fused kernel on CUDA
     tensors (the two-plane load stage, with doc limits when dlim is
-    given, or the dv load stage for one plane). Returns (vals, docs)."""
+    given, or the dv load stage for one plane) with launch_threads(r_c)
+    threads a block. Returns (vals, docs)."""
     dev = planes[0].device
     nq = srcrow.shape[0]
     for name, t in zip(("post_doc", "post_val"), planes):
@@ -343,6 +489,7 @@ def launch_fused(
                                 device=dev)
     tail = (
         nq, n_blocks, block, s, k, n_docs, scale, clip, r_c, key_bits,
+        launch_threads(r_c),
         None if workspace is None else workspace.data_ptr(),
         vals.data_ptr(), docs.data_ptr(),
     )

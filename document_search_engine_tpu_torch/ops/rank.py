@@ -175,12 +175,10 @@ def corank(x, y, diag: int) -> int:
 def merge_path_sort(words: torch.Tensor, granule: int,
                     stretch: int | None = None, sentinel: int | None = None,
                     threads: int = THREADS):
-    """Sorts one (C,) row the way the kernels do: the real prefix of
-    every granule stored back to back, the table of natural runs, then
-    pairwise merge-path levels in which thread t writes outputs
-    [t * stretch, (t + 1) * stretch) (default: the kernel's odd
-    ceil(n / threads) | 1). Returns (sorted real words (n,) int64, the
-    number of natural runs, the number of levels)."""
+    """Sorts one (C,) row the way the rank-only kernel does: the real
+    prefix of every granule stored back to back, then merge_region.
+    Returns (sorted real words (n,) int64, the number of natural runs, the
+    number of levels)."""
     w = words.tolist()
     c = len(w)
     assert c % granule == 0
@@ -192,8 +190,21 @@ def merge_path_sort(words: torch.Tensor, granule: int,
     for u, ln in enumerate(lens):
         unit_off.append(len(a))
         a.extend(w[u * granule : u * granule + ln])
+    unit_off.append(len(a))
+    return merge_region(a, unit_off, stretch, threads)
+
+
+def merge_region(a, unit_off, stretch: int | None = None,
+                 threads: int = THREADS):
+    """The rank stage over a region a[0, n) stored back to back in units
+    a[unit_off[u], unit_off[u + 1]), each ascending, unit_off[-1] == n:
+    the table of natural runs, then pairwise merge-path levels in which
+    thread t writes outputs [t * stretch, (t + 1) * stretch) (default: the
+    kernel's odd ceil(n / threads) | 1). Returns (sorted words (n,)
+    int64, the number of natural runs, the number of levels)."""
+    a = list(a)
     n = len(a)
-    unit_off.append(n)
+    assert unit_off[-1] == n
     # natural_runs: non-empty units where order breaks
     off = [o for u, o in enumerate(unit_off[:-1])
            if unit_off[u + 1] > o and (o == 0 or a[o - 1] > a[o])]
@@ -236,3 +247,26 @@ def merge_path_sort(words: torch.Tensor, granule: int,
         wd <<= 1
         levels += 1
     return torch.tensor(src, dtype=torch.int64), n_runs, levels
+
+
+def rank_merged(words: torch.Tensor, s: int, k: int, n_docs: int, kb: int):
+    """Run-sums and top-k of sorted (n,) int64 words (key << 32) | ci, as
+    rank.cuh does (run_end_composite, then the top-k of either branch):
+    each run end of a doc below n_docs sums the ci of at most s positions
+    of its doc back, and the k best by (run-sum desc, doc asc) with
+    run-sum > 0 are (vals, docs) (k,) int64, (-1, -1) past the last."""
+    w = words.tolist()
+    doc = [(x >> 32) >> kb for x in w]
+    cand = []
+    for i, x in enumerate(w):
+        if doc[i] >= n_docs or (i + 1 < len(w) and doc[i + 1] == doc[i]):
+            continue
+        run = sum(w[i - j] & 0xFFFFFFFF for j in range(min(s, i + 1))
+                  if doc[i - j] == doc[i])
+        if run > 0:
+            cand.append((-run, doc[i]))
+    cand.sort()
+    vals = [-r for r, _d in cand[:k]] + [-1] * max(0, k - len(cand))
+    docs = [d for _r, d in cand[:k]] + [-1] * max(0, k - len(cand))
+    return (torch.tensor(vals, dtype=torch.int64),
+            torch.tensor(docs, dtype=torch.int64))
