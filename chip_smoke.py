@@ -43,9 +43,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n_blocks 128, the last term's rows ending at the plane's last row (or
    the dv plane's pad rows), exactly c real pairs, doc-range pieces that
    start below d_lo, an empty query in each, and r_c on each side of each
-   thread-count threshold. The rerank dots: random int8 tables at dim
-   {64, 256} and K {16, 64, 128}, with dead (-1) and repeated gids.
-   Results must be bit-identical.
+   thread-count threshold (with queries that reach every placement at
+   its larger sizes). The rerank dots: random int8 tables at dim {64,
+   100, 256, 1024}, each with 16-byte and 4-byte loads (dim 100: 4-byte
+   only), K in {1, 10, 16, 64, 65, 200}, 301 queries (a multiple of no
+   queries a block above 1), with dead (-1) and repeated gids, a query
+   with no live candidate and the table's last row. Results must be
+   bit-identical.
 3. Parity on the card: SearchEngine(device="cuda") equals the frozen CPU
    oracle in ids and integer scores (bm25 and tfidf, k up to 200), in
    the default mode and in each of scorer "xla_rank", scorer "fused_dv"
@@ -72,9 +76,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sample of >= 1,024 queries covering every cell must equal the plain
    scorer with the plain dots. Serving q/s is the median of 5 more
    passes. One batch's buckets at k=64 are compared in full and timed,
-   and one batch's dots are timed as kernel, plain version and one
-   float32 torch.bmm over the gathered candidates (the yardstick; the
-   port never calls it).
+   and one batch's dots are timed, each as a run of launches between one
+   pair of CUDA events: the kernel with the L2 warm and cold (a 128 MiB
+   write before each launch) and with every row in a 16 MiB stretch of
+   the table that the L2 holds, the plain version, and two yardsticks the
+   port never calls: one float32 torch.bmm over the candidates gathered
+   beforehand, and the whole function in PyTorch (gather, .float(),
+   bmm).
 6. The xla_rank, fused_dv and split paths at full size, on phase 4's
    index and batches: for each of scorer "xla_rank", scorer "fused_dv"
    and scorer "fused" with split_rows 128, search_stream's ids and scores
@@ -808,12 +816,18 @@ def load_plans(rng, device):
              [[3, 3], [0, 3], [1, 2]],
              ones(3, 2) * np.float32([[1, 1], [1, 0], [1, 1]]), 4096,
              4 * c)
-    # r_c on each side of each thread-count threshold
+    # r_c on each side of each thread-count threshold, small queries in
+    # shared memory at each thread count; the same structure at 20 and
+    # 40 times the size reaches the first-only and workspace placements
+    # (the tight r_c, 1024 threads)
     rcs = sorted({r for b, _t in F.THREADS_BY_RC if b
                   for r in (b // 2, b, 2 * b)})
-    plan("regions on each side of the launch-shape thresholds",
-         [300, 400, 77, 500], rng.integers(0, 4, (6, 3)),
-         ones(6, 3), 512, 30000, rcs=rcs)
+    for scale in (1, 20, 40):
+        plan(f"regions on each side of the launch-shape thresholds "
+             f"({scale}x)", np.array([300, 400, 77, 500]) * scale,
+             [[0, 1, 2], [3, 3, 3], [1, 3, 0], [2, 2, 2], [0, 0, 3],
+              [1, 1, 1]], ones(6, 3), 512, 30000 * scale,
+             rcs=rcs if scale == 1 else None)
     # doc-range pieces whose first row starts below d_lo, at each size
     for scale in (1, 10, 40):
         n_docs, block, s, nq, m = 30000 * scale, 4096, 4, 4, 2
@@ -901,11 +915,9 @@ def phase_load_fused(device, diffs, seed: int = 6):
                     n_dlim += 1
         log(f"kernel == plain: load: {what}, r_c {rcs}, k in {MERGE_KS}, "
             f"both key widths; fused, dv and dlim")
-    # every structure in every placement; the threshold regions hold
-    # small queries, in shared memory, at each thread count
+    # every structure in every placement
     for what, met in seen.items():
-        if met != {"shared", "first", "workspace"} and "threshold" not in (
-                what):
+        if met != {"shared", "first", "workspace"}:
             raise AssertionError(f"load: {what} met only {sorted(met)}")
     log("load cases: every structure met every buffer placement")
     return n_fused, n_dlim
@@ -1022,36 +1034,65 @@ def phase_split(device, diff, seed: int = 2) -> int:
     return n
 
 
+DOTS_DIMS = (64, 100, 256, 1024)
+DOTS_KS = (1, 10, 16, 64, 65, 200)
+
+
+def int8_rows(device, a, offset):
+    """The int8 array `a` on the card, contiguous, starting `offset`
+    bytes past a fresh allocation's (512-byte aligned) base: offset 0
+    lets the dots kernel read 16 bytes a load, offset 4 only 4."""
+    import torch
+
+    buf = torch.empty(a.size + offset, dtype=torch.int8, device=device)
+    out = buf[offset:].view(a.shape)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return out
+
+
 def phase_dots(device, diff: Diff, seed: int = 1) -> int:
     """The rerank dots kernel vs gather_and_dot_plain on random int8
-    tables; returns cases checked."""
+    tables: dim in DOTS_DIMS, each with 16-byte and 4-byte loads (emb and
+    qemb 16-byte aligned, or 4 bytes past it; dim 100 only the latter), K
+    in DOTS_KS, nq not a multiple of any queries a block; dead (-1) and
+    repeated gids, a query with no live candidate and the table's last
+    row. Returns cases checked."""
     import torch
 
     from document_search_engine_tpu_torch.ops import rerank as R
 
     rng = np.random.default_rng(seed)
-    n_docs, nq = 5000, 300
+    n_docs, nq = 5000, 301
     n = 0
-    for dim in (64, 256):
+    for dim in DOTS_DIMS:
         emb = rng.integers(-R.EMB_CLIP, R.EMB_CLIP + 1, (n_docs, dim))
         emb = emb.astype(np.int8)
         ssq = (emb.astype(np.int32) ** 2).sum(1).astype(np.int32)
-        for kc in (16, 64, 128):
+        qemb = rng.integers(-R.EMB_CLIP, R.EMB_CLIP + 1, (nq, dim))
+        qemb = qemb.astype(np.int8)
+        for kc in DOTS_KS:
             gids = rng.integers(0, n_docs, (nq, kc)).astype(np.int32)
             gids[rng.random((nq, kc)) < 0.1] = -1  # dead candidates
-            gids[:, 1] = gids[:, 0]  # repeated gids
-            gids[0] = -1  # a query with no candidates
-            qemb = rng.integers(-R.EMB_CLIP, R.EMB_CLIP + 1, (nq, dim))
-            args = [torch.from_numpy(a).to(device)
-                    for a in (emb, ssq, qemb.astype(np.int8), gids)]
-            got = R.gather_and_dot(*args)
-            want = R.gather_and_dot_plain(*args)
-            torch.cuda.synchronize()
-            what = f"dots dim={dim} K={kc}"
-            diff.check(got[0], want[0], what + " dots")
-            diff.check(got[1], want[1], what + " ssq")
-            log(f"kernel == plain: {what}")
-            n += 1
+            gids[:, -1] = gids[:, 0]  # repeated gids
+            gids[1, kc // 2] = n_docs - 1  # the table's last row
+            gids[0] = -1  # a query with no live candidate
+            ssq_t = torch.from_numpy(ssq).to(device)
+            g_t = torch.from_numpy(gids).to(device)
+            for offset in (0, 4) if dim % 16 == 0 else (4,):
+                e_t = int8_rows(device, emb, offset)
+                q_t = int8_rows(device, qemb, offset)
+                vec = 16 if offset == 0 else 4
+                if (e_t.data_ptr() % 16 == 0) != (vec == 16):
+                    raise AssertionError("emb is not aligned as intended")
+                got = R.gather_and_dot(e_t, ssq_t, q_t, g_t)
+                want = R.gather_and_dot_plain(e_t, ssq_t, q_t, g_t)
+                torch.cuda.synchronize()
+                what = f"dots dim={dim} K={kc} {vec}-byte loads"
+                diff.check(got[0], want[0], what + " dots")
+                diff.check(got[1], want[1], what + " ssq")
+                n += 1
+        log(f"kernel == plain: dots dim={dim}, K in {DOTS_KS}, "
+            f"{'16- and 4-byte' if dim % 16 == 0 else '4-byte'} loads")
     return n
 
 
@@ -1288,6 +1329,37 @@ def timed(fn, reps=TIMED_REPS):
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1))
     return out, float(np.median(times)), times
+
+
+def loop_ms(fn, n, reps=TIMED_REPS, scratch=None):
+    """ms a call of fn: n calls between one pair of CUDA events, divided
+    by n, the median of `reps` such runs after one warm call. With
+    `scratch` (a tensor larger than the 50 MB L2), every call follows a
+    write of it, so that fn finds the cache full of other lines, and the
+    same run of writes alone is subtracted. Returns (median ms, each
+    run's ms)."""
+    import torch
+
+    def run(body):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(n):
+            body()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1)
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if scratch is None:
+            times.append(run(fn) / n)
+        else:
+            both = run(lambda: (scratch.zero_(), fn()))
+            times.append((both - run(scratch.zero_)) / n)
+    return float(np.median(times)), times
 
 
 def sample_cells(rng, cell_list, nq, sample):
@@ -1876,32 +1948,59 @@ def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
     log("search_rerank stages, median ms per batch: " + ", ".join(
         f"{n} {v:.2f}" for n, v in res["stage_ms"].items()))
 
-    # one batch's dots: kernel, plain version, one float32 torch.bmm
+    # one batch's dots, each a run of launches between one pair of CUDA
+    # events: the kernel with the L2 warm (the batch's rows from the call
+    # before) and cold (a 128 MiB write before each call, as
+    # search_rerank finds the cache after the lexical kernel); the plain
+    # version; and two PyTorch yardsticks the port never calls: one
+    # float32 torch.bmm over rows gathered beforehand (the bmm alone),
+    # and the whole function in PyTorch (the gather emb[gids], .float()
+    # and the bmm)
     qemb = torch.from_numpy(batch0[0]).to(dev)
     g32 = torch.from_numpy(batch0[1].astype(np.int32)).to(dev)
-    got, res["dots_ms"], res["dots_ms_reps"] = timed(
-        lambda: R.gather_and_dot(emb, ssq, qemb, g32))
-    want, res["dots_plain_ms"], res["dots_plain_ms_reps"] = timed(
-        lambda: R.gather_and_dot_plain(emb, ssq, qemb, g32))
+    run = lambda: R.gather_and_dot(emb, ssq, qemb, g32)
+    got = run()
+    want = R.gather_and_dot_plain(emb, ssq, qemb, g32)
     diffs["rerank_dots"].check(got[0], want[0], "batch dots")
     diffs["rerank_dots"].check(got[1], want[1], "batch cand_ssq")
-    # the yardstick: every dot is an integer under 2^24, so full-f32
-    # bmm is exact on the gathered rows (TF32 is off)
+    res["dots_ms"], res["dots_ms_reps"] = loop_ms(run, 50)
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    res["dots_cold_ms"], res["dots_cold_ms_reps"] = loop_ms(
+        run, 20, scratch=scratch)
+    del scratch
+    _o, res["dots_single_launch_ms"], _r = timed(run)
+    # the same launch with every gid folded into the table's first 65,536
+    # rows (16 MiB, which the L2 holds): as many row reads, none of them
+    # from device memory once warm
+    g_l2 = (g32.clamp(min=0) % 65536).to(torch.int32)
+    res["dots_l2_resident_ms"], res["dots_l2_resident_ms_reps"] = loop_ms(
+        lambda: R.gather_and_dot(emb, ssq, qemb, g_l2), 50)
+    res["dots_plain_ms"], res["dots_plain_ms_reps"] = loop_ms(
+        lambda: R.gather_and_dot_plain(emb, ssq, qemb, g32), 5)
+    # every dot is an integer under 2^24, so full-f32 bmm is exact on
+    # the gathered rows (TF32 is off)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cand_f = emb[g32.clamp(min=0).long()].float()  # (nq, K, dim)
+    safe = g32.clamp(min=0).long()
+    cand_f = emb[safe].float()  # (nq, K, dim)
     q_f = qemb.float()[:, :, None]  # (nq, dim, 1)
-    lib_out, res["dots_library_ms"], res["dots_library_ms_reps"] = timed(
-        lambda: torch.bmm(cand_f, q_f))
     res["dots_library_equal"] = bool(
-        (lib_out[:, :, 0].to(torch.int32) == got[0]).all())
+        (torch.bmm(cand_f, q_f)[:, :, 0].to(torch.int32) == got[0]).all())
+    res["dots_library_ms"], res["dots_library_ms_reps"] = loop_ms(
+        lambda: torch.bmm(cand_f, q_f), 20)
     del cand_f
+    res["dots_gather_bmm_ms"], res["dots_gather_bmm_ms_reps"] = loop_ms(
+        lambda: torch.bmm(emb[safe].float(), q_f), 10)
     res["dots_bound_ms"], res["dots_bound_by"], res["dots_rows"] = (
         dots_bound(g32, nq, kk, dim))
     log(f"one batch's dots ({nq} x {kk} x {dim}): kernel "
-        f"{res['dots_ms']:.4f} ms, plain {res['dots_plain_ms']:.3f} ms, "
-        f"bmm {res['dots_library_ms']:.3f} ms (equal: "
-        f"{res['dots_library_equal']}), bound {res['dots_bound_ms']:.4f} ms "
-        f"({res['dots_rows']} distinct rows)")
+        f"{res['dots_ms']:.4f} ms L2-warm, {res['dots_cold_ms']:.4f} ms "
+        f"L2-cold ({res['dots_single_launch_ms']:.4f} ms one launch, "
+        f"{res['dots_l2_resident_ms']:.4f} ms with the rows in L2), "
+        f"plain {res['dots_plain_ms']:.3f} ms, bmm "
+        f"{res['dots_library_ms']:.3f} ms (equal: "
+        f"{res['dots_library_equal']}), gather + bmm "
+        f"{res['dots_gather_bmm_ms']:.3f} ms, bound "
+        f"{res['dots_bound_ms']:.4f} ms ({res['dots_rows']} distinct rows)")
     return res
 
 

@@ -397,6 +397,7 @@ def _lib():
         lib.dse_rerank_dots.argtypes = [
             p, p, p, p,  # emb, ssq, qemb, gids
             i, i, i,  # nq, candidates, dim
+            i, i, i,  # vec, lanes, queries a block (rerank.dots_launch)
             p, p, p,  # dots, cand_ssq, stream
         ]
         for fn in (lib.dse_fused_search, lib.dse_fused_search_dv,

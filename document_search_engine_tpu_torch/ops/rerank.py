@@ -20,6 +20,9 @@ backend.
 - `gather_and_dot` launches the CUDA kernel csrc/rerank_dots.cu (which
   replaces the reference's Pallas `rerank_dots_pallas`) for CUDA tensors
   and takes its plain version `gather_and_dot_plain` for CPU tensors.
+  `dots_vec` and `dots_launch` choose the kernel's launch shape;
+  `dots_reads` and `gather_and_dot_mirror` mirror its layout for the CPU
+  tests.
 """
 from __future__ import annotations
 
@@ -146,6 +149,133 @@ def gather_and_dot_plain(emb, ssq, qemb, gids):
     return dots, ssq[safe]
 
 
+# csrc/rerank_dots.cu kDotsThreads and kDotsSlots: threads a block, and
+# candidates each lane group holds in flight
+DOTS_THREADS = 256
+DOTS_SLOTS = 4
+
+
+def dots_vec(dim: int, *ptrs: int) -> int:
+    """Bytes a load of csrc/rerank_dots.cu: 16 where dim % 16 == 0 and
+    every base address in `ptrs` (emb's and qemb's) is 16-byte aligned,
+    else 4."""
+    return 16 if dim % 16 == 0 and all(p % 16 == 0 for p in ptrs) else 4
+
+
+def dots_launch(nq: int, kc: int, dim: int, vec: int) -> dict:
+    """The dots kernel's launch shape for (nq, K) candidates of dim-byte
+    rows read `vec` bytes a load: `lanes` threads a row (a power of two,
+    min(32, >= dim / vec)) reading chunks lane + lanes * i for i <
+    `rounds`; `groups` rows a block step; `qb` queries a block (the most,
+    a power of two, whose `tile` = groups / qb * DOTS_SLOTS candidates
+    still hold K); grid (queries, candidate tiles)."""
+    chunks = dim // vec
+    lanes = min(32, 1 << max(chunks - 1, 0).bit_length())
+    groups = DOTS_THREADS // lanes
+    qb = 1
+    while 2 * qb <= groups and groups // (2 * qb) * DOTS_SLOTS >= kc:
+        qb *= 2
+    tile = groups // qb * DOTS_SLOTS
+    return dict(vec=vec, chunks=chunks, lanes=lanes,
+                rounds=-(-chunks // lanes), groups=groups, qb=qb,
+                per_q=groups // qb, tile=tile,
+                grid=(-(-nq // qb), -(-kc // tile)))
+
+
+def _cells(lay, nq, kc):
+    """Cell t of block (x, y) in the gid and write phases: query x * qb +
+    t // tile, candidate y * tile + t % tile; (q, j, in range) over
+    (grid x, grid y, qb * tile)."""
+    gx, gy = lay["grid"]
+    t = np.arange(lay["qb"] * lay["tile"])
+    q = np.arange(gx)[:, None, None] * lay["qb"] + t // lay["tile"]
+    j = np.arange(gy)[None, :, None] * lay["tile"] + t % lay["tile"]
+    q, j = np.broadcast_arrays(q, j)
+    return q, j, (q < nq) & (j < kc)
+
+
+def dots_reads(nq: int, kc: int, dim: int, vec: int) -> dict:
+    """Every row read of the dots kernel, as int64 arrays over (grid x,
+    grid y, thread, slot, round): the thread's lane, the cell its
+    group's slot stages (qi * tile + group % per_q + per_q * slot),
+    query q, candidate j, chunk c; `slot_live` (q < nq and j < K: the
+    slot holds a candidate) and `live` (slot_live and c < chunks: the
+    read is issued)."""
+    lay = dots_launch(nq, kc, dim, vec)
+    gx, gy = lay["grid"]
+    lanes, per_q = lay["lanes"], lay["per_q"]
+    bx, by, th, s, i = np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(DOTS_THREADS),
+        np.arange(DOTS_SLOTS), np.arange(lay["rounds"]), indexing="ij")
+    grp = th // lanes
+    qi, jg = grp // per_q, grp % per_q
+    q = bx * lay["qb"] + qi
+    j = by * lay["tile"] + jg + per_q * s
+    c = th % lanes + lanes * i
+    slot_live = (q < nq) & (j < kc)
+    return dict(lane=th % lanes, cell=qi * lay["tile"] + jg + per_q * s,
+                q=q, j=j, c=c, slot_live=slot_live,
+                live=slot_live & (c < lay["chunks"]))
+
+
+def gather_and_dot_mirror(emb, ssq, qemb, gids, vec: int):
+    """gather_and_dot through the dots kernel's layout (numpy int8/int32
+    arrays in, (dots, cand_ssq) int32 out): the gid phase into each
+    block's cells, every lane's chunk products (dots_reads), the xor
+    butterfly within each lane group, lane 0's staging, and the
+    coalesced write of each block's cells. Raises where a cell is
+    staged or a result written other than once."""
+    n_docs, dim = emb.shape
+    nq, kc = gids.shape
+    lay = dots_launch(nq, kc, dim, vec)
+    gx, gy = lay["grid"]
+    lanes, slots = lay["lanes"], DOTS_SLOTS
+    # 1. gids into each block's cells
+    cq, cj, cok = _cells(lay, nq, kc)
+    s_gid = np.full(cq.shape, -1, np.int64)
+    s_gid[cok] = np.maximum(gids[cq[cok], cj[cok]], 0)
+    # 2. every lane's products over its chunks, summed over its rounds
+    r = dots_reads(nq, kc, dim, vec)
+    bx = np.arange(gx)[:, None, None, None, None]
+    by = np.arange(gy)[None, :, None, None, None]
+    g = np.where(r["live"], s_gid[bx, by, r["cell"]], 0)
+    if (g[r["live"]] < 0).any():
+        raise AssertionError("a live read's cell holds no gid")
+    rows = emb.reshape(n_docs, -1, vec).astype(np.int32)
+    qrows = qemb.reshape(nq, -1, vec).astype(np.int32)
+    cc = np.minimum(r["c"], lay["chunks"] - 1)
+    prod = (rows[g, cc] * qrows[np.minimum(r["q"], nq - 1), cc]).sum(-1)
+    acc = np.where(r["live"], prod, 0).sum(-1)  # (gx, gy, threads, slots)
+    # 3. the xor butterfly within each group of `lanes` threads
+    acc = acc.reshape(gx, gy, lay["groups"], lanes, slots)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, :, :, np.arange(lanes) ^ off, :]
+        off //= 2
+    acc = acc.reshape(gx, gy, DOTS_THREADS, slots)
+    # 4. lane 0 stages its live slots; each cell in range is written
+    x, y, t, sl = np.nonzero(r["slot_live"][..., 0]
+                             & (r["lane"][..., 0] == 0))
+    at = r["cell"][x, y, t, sl, 0]
+    staged = np.zeros(cq.shape, np.int64)
+    np.add.at(staged, (x, y, at), 1)
+    if (staged != cok).any():
+        raise AssertionError("a cell is staged twice, never, or off range")
+    s_dot = np.zeros(cq.shape, np.int64)
+    s_dot[x, y, at] = acc[x, y, t, sl]
+    s_ssq = np.zeros(cq.shape, np.int64)
+    s_ssq[x, y, at] = ssq[s_gid[x, y, at]]
+    written = np.zeros((nq, kc), np.int64)
+    np.add.at(written, (cq[cok], cj[cok]), 1)
+    if (written != 1).any():
+        raise AssertionError("a result is written twice or never")
+    dots = np.zeros((nq, kc), np.int32)
+    cand_ssq = np.zeros((nq, kc), np.int32)
+    dots[cq[cok], cj[cok]] = s_dot[cok]
+    cand_ssq[cq[cok], cj[cok]] = s_ssq[cok]
+    return dots, cand_ssq
+
+
 def gather_and_dot(
     emb: torch.Tensor,  # (n_docs, dim) int8
     ssq: torch.Tensor,  # (n_docs,) int32
@@ -157,9 +287,10 @@ def gather_and_dot(
     candidates' squared norms. Dead gids read row 0 (the host ordering
     masks them through lex <= 0).
 
-    CUDA tensors launch csrc/rerank_dots.cu on the current stream (and
-    count one launch in gather_and_dot.launches); CPU tensors take
-    gather_and_dot_plain."""
+    CUDA tensors launch csrc/rerank_dots.cu on the current stream, in
+    the shape dots_launch gives (16-byte loads where dots_vec allows
+    them, else 4-byte), and count one launch in gather_and_dot.launches;
+    CPU tensors take gather_and_dot_plain."""
     dev = emb.device
     if dev.type == "cpu":
         return gather_and_dot_plain(emb, ssq, qemb, gids)
@@ -192,12 +323,15 @@ def gather_and_dot(
         return dots, cand_ssq
     if n_docs == 0:
         raise ValueError("gather_and_dot: empty embedding table")
+    lay = dots_launch(nq, kc, dim,
+                      dots_vec(dim, emb.data_ptr(), qemb.data_ptr()))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dse_rerank_dots(
             emb.data_ptr(), ssq.data_ptr(), qemb.data_ptr(), gids.data_ptr(),
-            nq, kc, dim, dots.data_ptr(), cand_ssq.data_ptr(), stream,
+            nq, kc, dim, lay["vec"], lay["lanes"], lay["qb"],
+            dots.data_ptr(), cand_ssq.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
