@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one NVIDIA GPU: build -> search_stream,
-the hybrid rerank path search_rerank, and the xla_rank, fused_dv and
-doc-range split serving paths.
+the hybrid rerank path search_rerank, the xla_rank, fused_dv and
+doc-range split serving paths, and the index lifecycle (streaming build,
+delete, compact, save/load, the CLI).
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -95,8 +96,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    workspace buckets, and per path (and for phase 4's run) the median
    host-clock ms a batch spends in the engine's dispatch (planning, H2D,
    enqueue) and collect (D2H wait, assembly, merges).
+7. The lifecycle path at full size, on phase 4's corpus, index and
+   batches (phase_lifecycle): a streaming build of the corpus in 8
+   batches of 125,000, which the default policy compacts into one
+   segment whose planes are torch.equal to phase 4's and whose results
+   equal phase 4's on all queries; one delete_docs of a seeded 100,000
+   ids on both engines, which must then agree on all queries, return no
+   deleted id, and equal the plain scorer on a sample; one batch through
+   scorer "fused_dv" and one split at 128 (both equal to the fused
+   results), then compact(): the results stay, and the device bytes it
+   frees must cover the old planes, the dv planes and the quantile
+   tables (allocated after - before <= resident after - before + 5% of
+   resident after); save, then SearchEngine.load on the card by default:
+   the same resident bytes and results, and no layout grows on replay;
+   the CLI (index, 16 searches, serve) with its default device on a
+   2,000-doc corpus, whose printed hits must equal the library's. The
+   fused kernel and its dv and dlim load stages must have launched.
+   Reported: the seconds of the streaming build (and the share of its
+   final compact), the delete, the compact, save and load; the peak
+   device bytes of the build and the compact; the checkpoint's bytes;
+   serving q/s after the compact (the median of 5 passes).
 
-stdout ends with the kernels' JSON line, the card's name and power
+stdout ends with the lifecycle path's JSON line, the kernels' JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line. Progress goes
 to stderr. chip_ab.py runs this script in several trees in turn, for a
 comparison on one card in one go.
@@ -150,6 +171,11 @@ PATHS = (
     ("fused_dv", None, "fused_search_dv"),
     ("fused", 128, "fused_search_split"),
 )
+# phase 7: the streaming build's batch (8 batches), the docs one
+# delete_docs call tombstones (10%), and the CLI's corpus and queries
+STREAM_BATCH_DOCS, N_DELETE = 125_000, 100_000
+CLI_DOCS, CLI_QUERIES = 2_000, 16
+PLANES = ("post_doc", "post_val", "post_tf", "indptr", "row_start")
 
 
 def log(msg: str) -> None:
@@ -1676,7 +1702,8 @@ def rank_chunks(d_key, ci, p, chunk_elems=64 << 20):
 def main_engine(device, res):
     """The main path's index (phase 4): the 1M-doc corpus built through
     SearchEngine.build (its build time, postings and resident bytes into
-    res), and its N_BATCHES query batches. Returns (engine, batches)."""
+    res), and its N_BATCHES query batches. Returns (engine, batches,
+    texts)."""
     import torch
 
     from document_search_engine_tpu_torch import (
@@ -1699,7 +1726,6 @@ def main_engine(device, res):
     eng.build(texts)
     sync()
     res["build_s"] = time.perf_counter() - t0
-    del texts
     host = eng.segments[0][0]
     res["postings"] = int(host.indptr[-1])
     res["resident_bytes"] = eng.resident_bytes()
@@ -1718,12 +1744,12 @@ def main_engine(device, res):
     )
     batches = make_batches(df_by_row, tokens_by_row, nq, TERMS_PER_QUERY,
                            n_batches)
-    return eng, batches
+    return eng, batches, texts
 
 
 def phase_main(device, diffs, sample=1024, seed=0):
     """Phase 4; returns (results, engine, query batches, the counted
-    run's (ids, scores) per batch)."""
+    run's (ids, scores) per batch, the corpus texts)."""
     import torch
 
     from document_search_engine_tpu_torch.analyze import native
@@ -1733,7 +1759,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     res = {"n_docs": n_docs, "vocab": VOCAB, "nq": nq, "batches": n_batches,
            "k": k, "depth": depth,
            "native_analyzer": bool(native.available())}
-    eng, batches = main_engine(device, res)
+    eng, batches, texts = main_engine(device, res)
     eng.preplan(batches, k=k)
     t0 = time.perf_counter()
     eng.warmup(queries=batches[0], k=k)  # builds the kernel library
@@ -1802,7 +1828,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     # one batch's buckets at full size: kernel vs plain, timed
     time_batch_buckets(eng, batches[0], k, diffs["fused_search"], res,
                        "batch_k10")
-    return res, eng, batches, outs
+    return res, eng, batches, outs, texts
 
 
 def dots_bound(gids, nq, kc, dim):
@@ -2071,9 +2097,7 @@ def phase_paths(eng, batches, base_outs, diffs):
                 1 if pm is None else int(pm[2]) for pm in pms)
         if r["launches"] <= 0:
             raise AssertionError(f"the {scorer} path launched no {name}")
-        for b, ((ids, sc), (w_ids, w_sc)) in enumerate(zip(outs, base_outs)):
-            np.testing.assert_array_equal(ids, w_ids, f"{name} batch {b} ids")
-            np.testing.assert_array_equal(sc, w_sc, f"{name} batch {b} scores")
+        assert_outs_equal(outs, base_outs, name)
         log(f"{name}: search_stream {nq * len(batches)} queries in "
             f"{dt:.3f}s = {r['serving_qps_counted_pass']:.1f} q/s, "
             f"median ms a batch on the host: dispatch {r['dispatch_ms']:.2f}"
@@ -2104,6 +2128,295 @@ def phase_paths(eng, batches, base_outs, diffs):
     return res
 
 
+# ------------------------------------------------------------ phase 7
+def serve_all(eng, batches):
+    """search_stream's (ids, scores) for every batch at the main path's
+    k and depth."""
+    return list(eng.search_stream(batches, k=K, depth=DEPTH))
+
+
+def assert_outs_equal(got, want, what):
+    assert len(got) == len(want), what
+    for b, ((ids, sc), (w_ids, w_sc)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(ids, w_ids, f"{what}: batch {b} ids")
+        np.testing.assert_array_equal(sc, w_sc, f"{what}: batch {b} scores")
+
+
+def planes_equal(a, b):
+    """Per plane: torch.equal of two one-segment engines' planes."""
+    import torch
+
+    da, db = a.segments[0][1], b.segments[0][1]
+    return {f: bool(torch.equal(getattr(da, f), getattr(db, f)))
+            for f in PLANES}
+
+
+def cache_bytes(eng):
+    """Device bytes of the engine's dv planes and doc-quantile tables."""
+    return (sum(e[2].numel() * e[2].element_size()
+                for e in eng._dv_cache.values())
+            + sum(e[2].numel() * e[2].element_size()
+                  for e in eng._quant_cache.values()))
+
+
+HIT_LINE = r"^\s*(\d+)\. (\S+)  score=([0-9.]+)  \(doc (\d+)\)$"
+
+
+def phase_cli(device, seed=13):
+    """Step 6 of phase 7: the CLI with its default device (the card, which
+    must be `device`) on a small corpus written as files: index, then
+    search for each query and serve them all from a stdin stream; the
+    printed hits must equal SearchEngine.load(index).search on the same
+    queries."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from document_search_engine_tpu_torch import SearchEngine, cli
+    from document_search_engine_tpu_torch.corpus.synth import (
+        synth_corpus,
+        synth_queries,
+    )
+
+    docs = synth_corpus(n_docs=CLI_DOCS, seed=seed)
+    queries = synth_queries(docs, n_queries=CLI_QUERIES, seed=seed + 1)
+    hit = re.compile(HIT_LINE)
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} returned {rc}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory() as d:
+        corpus, idx = os.path.join(d, "corpus"), os.path.join(d, "idx")
+        os.mkdir(corpus)
+        for i, text in enumerate(docs):
+            with open(os.path.join(corpus, f"doc_{i:05d}.txt"), "w") as f:
+                f.write(text)
+        t0 = time.perf_counter()
+        info = json.loads(run(["index", corpus, "--out", idx]))
+        if info["docs"] != CLI_DOCS:
+            raise AssertionError(f"cli index: {info}")
+        with open(os.path.join(idx, "docnames.json")) as f:
+            names = json.load(f)
+        lib = SearchEngine.load(idx)
+        if lib.device != device:
+            raise AssertionError(f"SearchEngine.load opened on {lib.device}")
+        ids, scores = lib.search(queries, k=K)
+        sb = lib.config.scoring.scale_bits
+        n_hits = 0
+        for qi, q in enumerate(queries):
+            got = [hit.match(ln).groups()
+                   for ln in run(["search", idx, q]).strip().splitlines()]
+            want = [(str(r), names[g], f"{s / (1 << sb):.6f}", str(g))
+                    for r, (g, s) in enumerate(zip(ids[qi], scores[qi]), 1)
+                    if g >= 0]
+            if got != want:
+                raise AssertionError(f"cli search {q!r}: {got} != {want}")
+            n_hits += len(got)
+        stdin = sys.stdin
+        sys.stdin = io.StringIO("\n".join(queries) + "\n")
+        try:
+            lines = run(["serve", idx, "--batch", "8"]).strip().splitlines()
+        finally:
+            sys.stdin = stdin
+        if len(lines) != len(queries):
+            raise AssertionError(f"cli serve: {len(lines)} lines")
+        for qi, line in enumerate(lines):
+            want = [{"doc": int(g), "score": float(s) / (1 << sb)}
+                    for g, s in zip(ids[qi], scores[qi]) if g >= 0]
+            if json.loads(line)["hits"] != want:
+                raise AssertionError(f"cli serve, query {qi}: {line}")
+        dt = time.perf_counter() - t0
+    if n_hits == 0:
+        raise AssertionError("the CLI's queries found nothing")
+    return {"cli_docs": CLI_DOCS, "cli_queries": CLI_QUERIES,
+            "cli_hits": n_hits, "cli_s": dt}
+
+
+def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
+    """Phase 7: the lifecycle at full size, on phase 4's corpus, index
+    and query batches. Step 1, a streaming build of the corpus in 8
+    batches, compacted by the default policy: its planes and results
+    equal phase 4's. Step 2, one delete_docs of a seeded 10% on both
+    engines: both give the same results, no deleted id comes back, and a
+    sample equals the plain scorer. Step 3, with the dv planes and the
+    doc-quantile tables filled (one batch through fused_dv and one split
+    at 128, both equal to the fused results), a compact: the results stay
+    and the device bytes it frees are the old planes, the dv planes and
+    the quantile tables. Step 4, save and load (the card, by default):
+    the same resident bytes, the same results, no layout grows. Step 6,
+    the CLI on the card. The fused kernel must have launched (step 5)."""
+    import tempfile
+
+    import torch
+
+    from document_search_engine_tpu_torch import SearchEngine
+    from document_search_engine_tpu_torch.corpus.loader import stream_batches
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    sync = torch.cuda.synchronize
+    mem = torch.cuda.memory_allocated
+    nq = NQ * len(batches)
+    res = {"n_docs": len(texts), "stream_batch_docs": STREAM_BATCH_DOCS}
+    reset_launches()
+
+    # 1. the streaming build, its final compact timed apart
+    seng = SearchEngine(eng.config, device=eng.device)
+    compact_s = []
+
+    def timed_compact(compact=seng.compact):
+        sync()
+        t0 = time.perf_counter()
+        compact()
+        sync()
+        compact_s.append(time.perf_counter() - t0)
+
+    seng.compact = timed_compact
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = mem()
+    t0 = time.perf_counter()
+    seng.build_streaming(stream_batches(texts, STREAM_BATCH_DOCS))
+    sync()
+    res["streaming_build_s"] = time.perf_counter() - t0
+    res["streaming_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - m0
+    del seng.compact  # the method again
+    if len(compact_s) != 1 or len(seng.segments) != 1:
+        raise AssertionError(
+            f"streaming build: {len(seng.segments)} segments after "
+            f"{len(compact_s)} compactions")
+    res["streaming_compact_s"] = compact_s[0]
+    res["streaming_compact_share"] = compact_s[0] / res["streaming_build_s"]
+    same = planes_equal(seng, eng)
+    if not all(same.values()):
+        raise AssertionError(f"streaming planes != phase 4's: {same}")
+    assert_outs_equal(serve_all(seng, batches), base_outs,
+                      "streaming build vs phase 4")
+    log(f"streaming build: {res['n_docs']} docs in 8 batches, "
+        f"{res['streaming_build_s']:.2f}s ({compact_s[0]:.2f}s of it the "
+        f"final compact), peak {res['streaming_peak_extra_bytes']} B above "
+        f"the start; planes and all {nq} results == phase 4's")
+
+    # 2. one delete of 10%, on both engines
+    rng = np.random.default_rng(seed)
+    dead = rng.choice(len(texts), size=N_DELETE, replace=False)
+    sync()
+    t0 = time.perf_counter()
+    seng.delete_docs(dead)
+    sync()
+    res["delete_s"] = time.perf_counter() - t0
+    res["deleted"] = N_DELETE
+    eng.delete_docs(dead)
+    d_outs = serve_all(seng, batches)
+    assert_outs_equal(serve_all(eng, batches), d_outs,
+                      "delete: phase 4's engine vs the streaming one")
+    if any(np.isin(ids, dead).any() for ids, _sc in d_outs):
+        raise AssertionError("a deleted doc came back")
+    res["queries_changed_by_delete"] = int(sum(
+        (ids != w_ids).any(axis=1).sum()
+        for (ids, _s), (w_ids, _w) in zip(d_outs, base_outs)))
+    pick = np.sort(rng.choice(NQ, size=sample, replace=False))
+    seng.scorer = "plain"
+    for lo in range(0, sample, 256):
+        sel = pick[lo : lo + 256]
+        p_ids, p_sc = seng.search([batches[0][i] for i in sel], k=K)
+        np.testing.assert_array_equal(d_outs[0][0][sel], p_ids,
+                                      "delete: plain ids")
+        np.testing.assert_array_equal(d_outs[0][1][sel], p_sc,
+                                      "delete: plain scores")
+    log(f"delete: {N_DELETE} docs in {res['delete_s']:.3f}s (host and "
+        f"refresh); both engines equal on all {nq} queries "
+        f"({res['queries_changed_by_delete']} changed), no deleted id "
+        f"returned, {sample} sampled == plain scorer")
+
+    # 3. fill the dv and quantile caches, then compact
+    for scorer, split in (("fused_dv", None), ("fused", 128)):
+        seng.scorer, seng.split_rows = scorer, split
+        ids, sc = seng.search(batches[0], k=K)
+        np.testing.assert_array_equal(ids, d_outs[0][0], f"{scorer} ids")
+        np.testing.assert_array_equal(sc, d_outs[0][1], f"{scorer} scores")
+    seng.scorer, seng.split_rows = None, None
+    res["cache_bytes_before_compact"] = cache_bytes(seng)
+    if not (seng._dv_cache and seng._quant_cache):
+        raise AssertionError("the dv and quantile caches were not filled")
+    sync()
+    a, r0 = mem(), seng.resident_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seng.compact()
+    sync()
+    res["compact_s"] = time.perf_counter() - t0
+    b, r1 = mem(), seng.resident_bytes()
+    res["compact_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - a
+    res.update(compact_allocated_before=a, compact_allocated_after=b,
+               resident_before=r0, resident_after=r1)
+    if b - a > (r1 - r0) + 0.05 * r1:
+        raise AssertionError(
+            f"compact freed too little: allocated {a} -> {b}, resident "
+            f"{r0} -> {r1}")
+    seng.preplan(batches, k=K)
+    c_outs = serve_all(seng, batches)
+    assert_outs_equal(c_outs, d_outs, "compact")
+    qps = []
+    for _ in range(SERVING_PASSES):
+        t0 = time.perf_counter()
+        serve_all(seng, batches)
+        sync()
+        qps.append(nq / (time.perf_counter() - t0))
+    res["serving_qps_after_compact"] = float(np.median(qps))
+    res["serving_qps_after_compact_passes"] = qps
+    log(f"compact: {res['compact_s']:.2f}s, peak "
+        f"{res['compact_peak_extra_bytes']} B above the start; allocated "
+        f"{a} -> {b} B, resident {r0} -> {r1} B (dv planes and quantile "
+        f"tables held {res['cache_bytes_before_compact']} B); all results "
+        f"unchanged; serving after it: median "
+        f"{res['serving_qps_after_compact']:.1f} q/s")
+
+    # 4. save and load, on the card by default
+    with tempfile.TemporaryDirectory() as d:
+        sync()
+        t0 = time.perf_counter()
+        seng.save(d)
+        res["save_s"] = time.perf_counter() - t0
+        res["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        leng = SearchEngine.load(d)
+        sync()
+        res["load_s"] = time.perf_counter() - t0
+    if leng.device != eng.device:
+        raise AssertionError(f"SearchEngine.load opened on {leng.device}")
+    if leng.resident_bytes() != seng.resident_bytes():
+        raise AssertionError("the loaded index holds other bytes")
+    assert_outs_equal(serve_all(leng, batches), c_outs, "loaded checkpoint")
+    res["loaded_layout"] = leng.plan_cache.stats()
+    if leng.plan_cache.grows != 0:
+        raise AssertionError(f"replay grew layouts: {res['loaded_layout']}")
+    del leng
+    log(f"save {res['save_s']:.2f}s ({res['checkpoint_bytes']} B on disk), "
+        f"load {res['load_s']:.2f}s; all results == the saved engine's, "
+        f"{res['loaded_layout']}")
+
+    # 6. the CLI on the card (a small corpus of its own)
+    res.update(phase_cli(eng.device))
+    log(f"cli: index, {CLI_QUERIES} searches and serve on the card in "
+        f"{res['cli_s']:.2f}s, {res['cli_hits']} hits == the library's")
+
+    # 5. the kernels ran over the whole phase
+    res["launches"] = F.fused_search.launches
+    res["launches_dv"] = F.fused_search.launches_dv
+    res["launches_dlim"] = F.fused_search.launches_dlim
+    for key in ("launches", "launches_dv", "launches_dlim"):
+        if res[key] <= 0:
+            raise AssertionError(f"phase 7: no fused_search {key}")
+    return res
+
+
 def thread_sweep(threads=(256, 1024)):
     """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
     each bucket of one main-path batch (fused at k = 10 and 64, the dv
@@ -2122,7 +2435,7 @@ def thread_sweep(threads=(256, 1024)):
     if not torch.cuda.is_available():
         raise SystemExit("thread_sweep: CUDA is not available")
     print(f"card: {card_line()}", flush=True)
-    eng, batches = main_engine(torch.device("cuda"), {})
+    eng, batches, _texts = main_engine(torch.device("cuda"), {})
     rule = F.launch_threads
     diff = Diff()
     try:
@@ -2207,13 +2520,16 @@ def main() -> int:
     log(f"phase 2: {n} dots kernel-vs-plain cases bit-identical")
     n = phase_oracle(device)
     log(f"phase 3: {n} oracle and rerank comparisons bit-identical")
-    res, eng, batches, outs = phase_main(device, diffs)
+    res, eng, batches, outs, texts = phase_main(device, diffs)
     res["kernel_build_s"] = build_s
     print("main path: " + json.dumps(res), flush=True)
     rr = phase_rerank(eng, batches, diffs)
     print("rerank path: " + json.dumps(rr), flush=True)
     pp = phase_paths(eng, batches, outs, diffs)
     print("further paths: " + json.dumps(pp), flush=True)
+    lc = phase_lifecycle(eng, batches, outs, texts)
+    del texts
+    print("lifecycle path: " + json.dumps(lc), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],

@@ -1,10 +1,12 @@
 """SearchEngine over torch device segments: build -> search_stream.
 
-Port of `document_search_engine_tpu/engine/engine.py` for the serving
-slice: build/add_docs, the stats and value refresh, search,
-search_stream, preplan and warmup, with the batch step (`_batch_step`)
-running every (segment x bucket) sub-call of a batch and producing one
-stacked int32 output, so a batch costs one device->host read.
+Port of `document_search_engine_tpu/engine/engine.py`: build,
+add_docs, the streaming build, delete_docs, compact and the auto-compact
+policy, the stats and value refresh, save/load (index/checkpoint.py),
+search, search_stream, preplan and warmup, with the batch step
+(`_batch_step`) running every (segment x bucket) sub-call of a batch and
+producing one stacked int32 output, so a batch costs one device->host
+read.
 
 Also the hybrid rerank path: `search_rerank` and its device-resident
 embedding table (`_device_embeddings`, ops/rerank.py).
@@ -27,9 +29,10 @@ threshold are cut into doc-disjoint pieces (ops/schedule.py
 split_pieces), each ranked by the fused kernel with per-piece doc limits
 and merged per query by (score desc, gid asc) on the host.
 
-Paths outside the port so far raise NotImplementedError naming their
-ROADMAP item rather than taking another path: delete, compact and
-streaming build (A7), and save/load (A8).
+Every mutation (add, delete, compact, streaming build, load) re-merges
+the global stats and drops every per-segment device cache (row tables,
+embeddings, dv planes, doc-quantile tables), so no cache keeps a
+replaced plane resident.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch
 
 from ..config import IndexConfig
 from ..index import builder
-from ..index.csr import GlobalStats, merge_stats
+from ..index.csr import GlobalStats, merge_stats, ragged_positions
 from ..ops.fused import MAX_K
 from ..ops.plan_cache import PlanLayoutCache
 from ..ops.schedule import (
@@ -60,12 +63,6 @@ SCORER_ALIASES = {"plain": "xla"}
 def _pow2_at_least(n: int, lo: int = 1) -> int:
     n = max(n, lo)
     return 1 << int(np.ceil(np.log2(n)))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP {item})"
-    )
 
 
 def _batch_step(
@@ -199,6 +196,47 @@ def pipelined_stream(query_batches, depth, analyze_job, dispatch_job):
             yield inflight.popleft()()
 
 
+def delete_from_hosts(hosts, global_ids) -> bool:
+    """Vectorized tombstone and exact df decrement over a list of
+    SegmentHost. Hosts must cover ascending contiguous global-id ranges
+    (the append-only doc_base invariant the engine keeps). Returns True
+    when any doc died.
+
+    Work per call: one searchsorted over the segment bases, and per
+    affected segment one ragged gather of the dead docs' term hashes,
+    one vocab lookup and one np.subtract.at; no per-doc Python loop."""
+    if not hosts:
+        return False
+    gids = np.unique(np.asarray(list(global_ids), dtype=np.int64))
+    if gids.size == 0:
+        return False
+    bases = np.array([h.doc_base for h in hosts], np.int64)
+    ends = bases + np.array([h.n_docs for h in hosts], np.int64)
+    # the searchsorted bucketing below is only correct under the
+    # append-only invariant: segment global-id ranges are ascending and
+    # contiguous from 0
+    assert bases[0] == 0 and np.all(bases[1:] == ends[:-1]), (
+        "delete_from_hosts requires ascending contiguous doc_base ranges"
+    )
+    si_of = np.searchsorted(bases, gids, side="right") - 1
+    in_range = (si_of >= 0) & (gids < ends[np.clip(si_of, 0, None)])
+    changed = False
+    for si in np.unique(si_of[in_range]):
+        host = hosts[si]
+        ld = gids[in_range & (si_of == si)] - host.doc_base
+        ld = ld[host.alive[ld]]
+        if ld.size == 0:
+            continue
+        host.alive[ld] = False
+        starts = host.doc_ptr[ld]
+        lens = (host.doc_ptr[ld + 1] - starts).astype(np.int64)
+        pos = ragged_positions(starts, lens)
+        rows = np.searchsorted(host.term_hash, host.doc_hashes[pos])
+        np.subtract.at(host.df, rows, 1)
+        changed = True
+    return changed
+
+
 def synth_warmup_analysis(stats, config, nq: int, terms_per_query: int,
                           seed: int):
     """Synthetic pre-analyzed warmup batch: terms sampled df-weighted
@@ -264,8 +302,11 @@ class SearchEngine:
         # None = "fused" on CUDA, "xla" on the CPU (scorer_mode)
         self.scorer: str | None = None
         # segment lifecycle policy (the reference's): compact when the
-        # segment count passes this bound; compaction itself is A7
+        # segment count passes auto_compact_segments, or when tombstoned
+        # docs' postings pass auto_compact_dead_frac of all postings;
+        # None turns that check off (_maybe_auto_compact)
         self.auto_compact_segments: int | None = 4
+        self.auto_compact_dead_frac: float | None = 0.5
         # None = scorer-tuned block families (ops/schedule.py)
         self.block_families = None
         # smallest per-bucket n_blocks budget (pow-2)
@@ -280,10 +321,7 @@ class SearchEngine:
         # exactly. None = off (the reference's default). Only the fused
         # scorer with one block family takes it (_split_active).
         self.split_rows: int | None = None
-        self._rows_global = None
-        self._emb_cache: dict = {}  # dim -> (emb, ssq), _device_embeddings
-        self._dv_cache: dict = {}  # segment -> (doc, val, dv), _dv_planes
-        self._quant_cache: dict = {}  # segment -> (doc, offs_h, offs_d)
+        self._drop_caches()
 
     # ------------------------------------------------------------- build
     def build(self, texts) -> None:
@@ -298,24 +336,35 @@ class SearchEngine:
         texts = list(texts)
         if not texts:
             return []
-        if (
-            self.auto_compact_segments is not None
-            and len(self.segments) + 1 > self.auto_compact_segments
-        ):
-            # the reference compacts here; refuse before any state changes
-            raise _not_ported(
-                f"add_docs past auto_compact_segments="
-                f"{self.auto_compact_segments} (compaction)", "A7",
-            )
-        analyzed = builder.analyze_texts_fast(texts, self.config)
         doc_base = self.n_docs_total
+        self._append_segment(texts)
+        self._refresh_stats_and_vals()
+        self._maybe_auto_compact()
+        return list(range(doc_base, self.n_docs_total))
+
+    def build_streaming(self, batches) -> None:
+        """Streaming build: one segment per non-empty batch of an
+        iterable of doc batches, with one stats and value refresh at the
+        end (a refresh per batch would be O(batches^2) work), then the
+        lifecycle policy, so a many-batch build ends compacted."""
+        self.segments = []
+        self.n_docs_total = 0
+        for batch in batches:
+            batch = list(batch)
+            if batch:
+                self._append_segment(batch)
+        self._refresh_stats_and_vals()
+        self._maybe_auto_compact()
+
+    def _append_segment(self, texts) -> None:
+        """Analyze and build one segment on the device, with its doc ids
+        following the engine's last."""
+        analyzed = builder.analyze_texts_fast(texts, self.config)
         host, dev_seg = builder.build_segment_device(
-            analyzed, self.config, self.device, doc_base=doc_base
+            analyzed, self.config, self.device, doc_base=self.n_docs_total
         )
         self.segments.append([host, dev_seg])
         self.n_docs_total += host.n_docs
-        self._refresh_stats_and_vals()
-        return list(range(doc_base, self.n_docs_total))
 
     def _refresh_stats_and_vals(self) -> None:
         """Re-merge global stats; re-materialize the df/avgdl-dependent
@@ -326,27 +375,96 @@ class SearchEngine:
             seg[1] = builder.refresh_segment_vals(
                 host, dev_seg, self.config, self.stats
             )
-        self._rows_global = None
-        self._emb_cache = {}  # embeddings depend on post_val
+        self._drop_caches()
+
+    def _drop_caches(self) -> None:
+        """Forget everything derived from the segments, so no cache entry
+        keeps a replaced plane resident (every mutation calls this)."""
+        self._rows_global = None  # per segment: term table is the vocab
+        self._emb_cache: dict = {}  # dim -> (emb, ssq), _device_embeddings
+        self._dv_cache: dict = {}  # segment -> (doc, val, dv), _dv_planes
+        self._quant_cache: dict = {}  # segment -> (doc, offs_h, offs_d)
 
     def load_segments(self, segments) -> None:
         """Serve already-built segments [(SegmentHost, SegmentDevice)]
         as they are (index/convert.py carries a reference engine's
-        segments across): stats are merged, values are NOT re-derived."""
+        segments across, index/checkpoint.py a saved index): stats are
+        merged, values are NOT re-derived."""
         self.segments = [list(seg) for seg in segments]
         self.n_docs_total = sum(h.n_docs for h, _ in self.segments)
         self.stats = merge_stats([h for h, _ in self.segments])
-        self._rows_global = None
-        self._emb_cache = {}
-
-    def build_streaming(self, batches) -> None:
-        raise _not_ported("build_streaming", "A7")
+        self._drop_caches()
 
     def delete_docs(self, global_ids) -> None:
-        raise _not_ported("delete_docs", "A7")
+        """Tombstone docs and update df, N and the alive length exactly
+        from the per-doc terms kept in SegmentHost (delete_from_hosts),
+        then one refresh: the dead docs' values fold to +0.0 on the
+        device, through a select."""
+        if delete_from_hosts([h for h, _ in self.segments], global_ids):
+            self._refresh_stats_and_vals()
+            self._maybe_auto_compact()
+
+    def _maybe_auto_compact(self) -> None:
+        """The segment lifecycle policy: compact when the segment count
+        passes auto_compact_segments, or when tombstoned docs' postings
+        pass auto_compact_dead_frac of all postings."""
+        if not self.segments:
+            return
+        if (
+            self.auto_compact_segments is not None
+            and len(self.segments) > self.auto_compact_segments
+        ):
+            self.compact()
+            return
+        if self.auto_compact_dead_frac is None:
+            return
+        dead_nnz, total_nnz = 0, 0
+        for host, _ in self.segments:
+            lens = np.diff(host.doc_ptr)
+            dead_nnz += int(lens[~host.alive].sum())
+            total_nnz += int(lens.sum())
+        if total_nnz and dead_nnz / total_nnz > self.auto_compact_dead_frac:
+            self.compact()
 
     def compact(self) -> None:
-        raise _not_ported("compact", "A7")
+        """Merge all segments into one, dropping tombstoned docs'
+        postings. Global doc ids are stable (dead ids keep empty slots
+        with dl 0), so results are identical before and after.
+
+        Vectorized: per segment one np.repeat keep-mask over the doc_ptr
+        lens selects the alive docs' postings, and since segments cover
+        contiguous global-id ranges, lens, dl and dead scatter as
+        slices. The merged docs are built on the device like any
+        segment, with the planes in (row, doc) order."""
+        if not self.segments:
+            return
+        n = self.n_docs_total
+        hashes_parts, tfs_parts, ptr = [], [], np.zeros(n + 1, np.int64)
+        dl = np.zeros(n, np.int32)
+        dead = np.zeros(n, bool)
+        for host, _ in self.segments:
+            lens = np.diff(host.doc_ptr).astype(np.int64)
+            keep_doc = host.alive
+            keep_post = np.repeat(keep_doc, lens)
+            lo, hi = host.doc_base, host.doc_base + host.n_docs
+            ptr[lo + 1 : hi + 1] = np.where(keep_doc, lens, 0)
+            dl[lo:hi] = np.where(keep_doc, host.dl, np.int32(0))
+            dead[lo:hi] = ~keep_doc
+            hashes_parts.append(host.doc_hashes[keep_post])
+            tfs_parts.append(host.doc_tfs[keep_post])
+        np.cumsum(ptr, out=ptr)
+        analyzed = builder.AnalyzedDocs(
+            hashes=np.concatenate(hashes_parts),
+            tfs=np.concatenate(tfs_parts),
+            doc_ptr=ptr,
+            dl=dl,
+        )
+        host, dev_seg = builder.build_segment_device(
+            analyzed, self.config, self.device, doc_base=0
+        )
+        host.alive[dead] = False
+        self.segments = [[host, dev_seg]]
+        self._refresh_stats_and_vals()
 
     # ----------------------------------------------------- hybrid rerank
     def _device_embeddings(self, dim: int):
@@ -417,11 +535,20 @@ class SearchEngine:
         )
 
     def save(self, path: str) -> None:
-        raise _not_ported("save", "A8")
+        """Write the index as a v2 checkpoint (index/checkpoint.py), the
+        format the JAX package reads and writes."""
+        from ..index.checkpoint import save_engine
+
+        save_engine(self, path)
 
     @classmethod
-    def load(cls, path: str):
-        raise _not_ported("load", "A8")
+    def load(cls, path: str, device=None) -> "SearchEngine":
+        """Open a v2 checkpoint saved by either package on `device`
+        (None means the card, as in the constructor); the stored plane
+        bits are served as they are."""
+        from ..index.checkpoint import load_engine
+
+        return load_engine(path, engine_cls=cls, device=device)
 
     def resident_bytes(self) -> int:
         """Device bytes held by the index's segments."""
@@ -568,11 +695,7 @@ class SearchEngine:
         on the device for the plan expansion. Built on the device from
         the resident doc plane (builder.device_row_doc_quantiles; the
         port keeps no host postings) and cached per segment while its
-        doc plane is the same tensor; entries of segments that are gone
-        are dropped, so none keeps a dropped plane's memory alive."""
-        for stale in [i for i in self._quant_cache
-                      if i >= len(self.segments)]:
-            del self._quant_cache[stale]
+        doc plane is the same tensor (every mutation drops the cache)."""
         ent = self._quant_cache.get(si)
         if ent is not None and ent[0] is dev_seg.post_doc:
             return ent[1], ent[2]
@@ -625,7 +748,7 @@ class SearchEngine:
         """Per segment the (X + 8, 256) interleaved doc|value plane of
         the fused_dv scorer (ops/fused_dv.py interleave_planes), built on
         the device and cached while the segment's planes are the same
-        tensors (a refresh of the values replaces post_val)."""
+        tensors (every mutation drops the cache)."""
         from ..ops.fused_dv import interleave_planes
 
         out = []
@@ -642,8 +765,6 @@ class SearchEngine:
                 )
                 self._dv_cache[si] = ent
             out.append(ent[2])
-        for si in [si for si in self._dv_cache if si >= len(self.segments)]:
-            del self._dv_cache[si]
         return out
 
     def preplan(self, query_batches, k: int = 10) -> None:

@@ -29,6 +29,7 @@ from .csr import (
     GlobalStats,
     SegmentDevice,
     SegmentHost,
+    lookup_sorted,
     round_up,
 )
 
@@ -362,6 +363,20 @@ def host_k_doc(dl: np.ndarray, config: IndexConfig, stats: GlobalStats):
         config.scoring.k1, config.scoring.b, avgdl
     )
     return (c0 + c1 * dl.astype(F32)).astype(F32)
+
+
+def recompute_alive_df(host: SegmentHost) -> None:
+    """Recount host.df over alive docs only, from the per-doc analyzed
+    terms (the ground truth of the delete path's df decrements)."""
+    doc_of = np.repeat(
+        np.arange(host.n_docs, dtype=np.int64),
+        np.diff(host.doc_ptr).astype(np.int64),
+    )
+    mask = host.alive[doc_of]
+    rows = lookup_sorted(host.term_hash, host.doc_hashes[mask])
+    host.df = np.bincount(
+        rows, minlength=host.n_terms
+    ).astype(np.int32)
 
 
 def _stats_key(stats: GlobalStats):

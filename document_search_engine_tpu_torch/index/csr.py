@@ -37,6 +37,20 @@ def lookup_sorted(haystack: np.ndarray, values: np.ndarray) -> np.ndarray:
     return idx.reshape(values.shape)
 
 
+def ragged_positions(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Flat positions of a batch of ragged ranges: the concatenation of
+    [starts[i], starts[i] + lens[i]) for every i, in one vectorized
+    repeat (the delete path's helper)."""
+    lens = lens.astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    off = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(lens) - lens, lens
+    )
+    return np.repeat(starts.astype(np.int64), lens) + off
+
+
 @dataclass
 class SegmentHost:
     """Host-resident segment metadata (the reference's SegmentHost)."""

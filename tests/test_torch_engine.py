@@ -5,9 +5,10 @@ default, and "fused", whose kernel wrapper takes the plain version on
 CPU tensors but keeps the fused path's block family, compacted plans
 and r_c buckets), k up to 200 (fused mode takes the plain scorer over
 uncompacted plans above 128, as the reference does). Also: a JAX-built
-index carried across by index/convert.py serves identically, and paths
-not ported yet raise NotImplementedError. Each package's engine is
-configured with its own package's IndexConfig."""
+index carried across by index/convert.py serves identically, an
+add_docs past the auto-compact bound compacts, and every scorer path
+serves. Each package's engine is configured with its own package's
+IndexConfig."""
 import numpy as np
 import pytest
 import torch
@@ -161,25 +162,22 @@ def test_warmup_and_preplan_then_serve():
     assert eng.plan_cache.grows >= grows
 
 
-def test_add_docs_past_compaction_bound_leaves_engine_unchanged():
-    """The reference compacts on the add_docs that passes
-    auto_compact_segments; compaction is not ported, so that call raises
-    before it changes anything and the engine serves on as it was."""
+def test_add_docs_past_compaction_bound_compacts():
+    """The add_docs that passes auto_compact_segments compacts, as the
+    reference does: the fifth segment's add leaves one segment that
+    serves the oracle's results over all 50 docs."""
     docs, queries = _toy(seed=8, n_docs=50)
     eng = _port(IndexConfig(), "fused")
     eng.build(docs[:10])
     for lo in (10, 20, 30):
         eng.add_docs(docs[lo : lo + 10])
     assert len(eng.segments) == eng.auto_compact_segments == 4
-    segments = [list(seg) for seg in eng.segments]
-    stats, n_total = eng.stats, eng.n_docs_total
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.add_docs(docs[40:])
-    assert [list(seg) for seg in eng.segments] == segments
-    assert eng.stats is stats and eng.n_docs_total == n_total == 40
+    assert eng.add_docs(docs[40:]) == list(range(40, 50))
+    assert len(eng.segments) == 1 and eng.n_docs_total == 50
+    assert eng.segments[0][0].doc_base == 0
     ora = OracleEngine()
-    ora.build(docs[:40])
-    _assert_same(eng.search(queries), ora.search(queries), "four segments")
+    ora.build(docs)
+    _assert_same(eng.search(queries), ora.search(queries), "compacted")
 
 
 @pytest.mark.parametrize("kind", ["tfidf", "bm25"])
@@ -205,19 +203,10 @@ def test_fused_large_k_matches_oracle(kind):
     )
 
 
-def test_paths_outside_the_slice_raise():
+def test_every_scorer_path_serves():
     docs, queries = _toy(seed=3, n_docs=30)
     eng = _port(IndexConfig(), "fused")
     eng.build(docs)
-    for call, item in (
-        (lambda: eng.delete_docs([1]), "A7"),
-        (lambda: eng.compact(), "A7"),
-        (lambda: eng.build_streaming([docs]), "A7"),
-        (lambda: eng.save("x"), "A8"),
-        (lambda: SearchEngine.load("x"), "A8"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
     # doc-range splitting and the fused_dv and xla_rank scorers serve
     ora = OracleEngine()
     ora.build(docs)

@@ -95,8 +95,8 @@ def test_engine_fused_dv_matches_oracle_and_reference(kind):
     """scorer="fused_dv" through the whole dispatch, k up to 200 (k > 128
     downgrades to "fused", which the plain scorer serves), against the
     oracle and the JAX engine (its fused_dv mode, interpreted, for bm25;
-    its plain scorer for tfidf); add_docs replaces the planes and so the
-    cached dv plane."""
+    its plain scorer for tfidf); add_docs replaces the planes and drops
+    the cached dv plane."""
     docs = synth_corpus(n_docs=90, vocab_size=400, mean_len=25, seed=51)
     queries = synth_queries(docs, n_queries=6, seed=52) + ["", "zzz"]
     cfg = IndexConfig(scoring=ScoringConfig(kind=kind))
@@ -118,8 +118,9 @@ def test_engine_fused_dv_matches_oracle_and_reference(kind):
     assert torch.equal(plane[:-8, 128:], seg.post_val)
     for e in (eng, ora):
         e.add_docs(docs[60:])
-    # the refresh replaced every post_val: the cached entry is stale
-    assert eng._dv_cache[0][1] is not eng.segments[0][1].post_val
+    # the refresh replaced every post_val and dropped the cached dv
+    # planes, so none keeps an old plane resident
+    assert not eng._dv_cache
     for k in (1, 17, 128, 200):
         want = ora.search(queries, k=k)
         got = eng.search(queries, k=k)

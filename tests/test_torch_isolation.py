@@ -2,7 +2,8 @@
 a process where importing jax or the JAX package fails; no module of the
 port, and not chip_smoke.py, imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
-its xla_rank, fused_dv and split paths serve on the CPU; the kernel
+its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
+compact), its checkpoints and its CLI serve on the CPU; the kernel
 wrapper takes its plain version for CPU tensors without counting a
 launch; and each host module the port keeps its own copy of behaves as
 its original in the JAX package on the same inputs."""
@@ -59,6 +60,27 @@ for scorer, split in (("xla_rank", None), ("fused_dv", None), ("fused", 1)):
     eng.scorer, eng.split_rows = scorer, split
     p_ids, p_scores = eng.search(["quick fox", "dog", "nothing"], k=3)
     assert (p_ids == o_ids).all() and (p_scores == o_scores).all(), scorer
+eng.scorer, eng.split_rows = None, None
+# the lifecycle, a checkpoint and the CLI
+import contextlib, io, tempfile
+from document_search_engine_tpu_torch.cli import main
+eng.add_docs(["a quick lazy fox"])
+eng.delete_docs([0, 2])
+ora.add_docs(["a quick lazy fox"])
+ora.delete_docs([0, 2])
+eng.compact()
+assert len(eng.segments) == 1
+want = ora.search(["quick fox", "dog", "nothing"], k=3)
+got = eng.search(["quick fox", "dog", "nothing"], k=3)
+assert (got[0] == want[0]).all() and (got[1] == want[1]).all(), got
+with tempfile.TemporaryDirectory() as d:
+    eng.save(d)
+    got = SearchEngine.load(d, device="cpu").search(["quick fox"], k=3)
+    assert (got[0] == want[0][:1]).all(), got
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(["search", d, "quick fox", "--device", "cpu"]) == 0
+    assert f"(doc {want[0][0, 0]})" in out.getvalue(), out.getvalue()
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
@@ -353,9 +375,130 @@ def _check_doc_quantiles():
         np.zeros(1, np.int64), np.zeros(0, np.int32), 8, 5).shape == (0, 9)
 
 
+def _check_corpus_loader():
+    import tempfile
+
+    from document_search_engine_tpu.corpus import loader as ref_l
+    from document_search_engine_tpu_torch.corpus import loader as port_l
+
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        (root / "sub" / "deeper").mkdir(parents=True)
+        for rel, text in (("b.txt", "beta"), ("a.text", "alpha"),
+                          ("c.bin", "binary"), ("NOTES", "no suffix"),
+                          ("sub/x.txt", "ex"), ("sub/deeper/.hidden", "h"),
+                          ("sub/deeper/y.md", "why"), ("sub/z.txt", "")):
+            (root / rel).write_text(text)
+        for suffixes in ((".txt", ".text", ""), (".md",), ()):
+            assert port_l.load_dir(d, suffixes) == ref_l.load_dir(
+                d, suffixes), suffixes
+    docs = list(range(11))
+    for size in (1, 4, 11, 64):
+        assert list(port_l.stream_batches(iter(docs), size)) == list(
+            ref_l.stream_batches(iter(docs), size))
+
+
+def _check_eval_metrics():
+    from document_search_engine_tpu.eval import metrics as ref_m
+    from document_search_engine_tpu_torch.eval import metrics as port_m
+
+    rng = np.random.default_rng(21)
+    results = rng.integers(-1, 30, (40, 10))
+    relevant = [rng.choice(30, size=int(rng.integers(0, 6)), replace=False)
+                for _ in range(40)]
+    for k in (None, 1, 5):
+        assert port_m.recall_at_k(results, relevant, k) == (
+            ref_m.recall_at_k(results, relevant, k))
+    assert port_m.mean_average_precision(results, relevant) == (
+        ref_m.mean_average_precision(results, relevant))
+    other = np.where(rng.random(results.shape) < 0.1, -1, results)
+    assert port_m.ranking_agreement(results, other) == (
+        ref_m.ranking_agreement(results, other))
+
+
+def _check_eval_harness():
+    from document_search_engine_tpu.eval import harness as ref_h
+    from document_search_engine_tpu_torch.eval import harness as port_h
+    from document_search_engine_tpu_torch.oracle import OracleEngine
+
+    kw = dict(n_topics=4, docs_per_topic=12, topic_vocab=60,
+              shared_vocab=150, mean_len=30, seed=5)
+    docs, doc_topics, topics = port_h.topic_corpus(**kw)
+    r_docs, r_doc_topics, r_topics = ref_h.topic_corpus(**kw)
+    assert docs == r_docs
+    np.testing.assert_array_equal(doc_topics, r_doc_topics)
+    for t, rt in zip(topics, r_topics):
+        np.testing.assert_array_equal(t, rt)
+    queries, q_topics = port_h.topic_queries(topics, n_per_topic=3)
+    r_queries, r_q_topics = ref_h.topic_queries(r_topics, n_per_topic=3)
+    assert queries == r_queries
+    np.testing.assert_array_equal(q_topics, r_q_topics)
+    ora = OracleEngine()
+    ora.build(docs)
+    for rerank in (False, True):
+        if rerank:  # the oracle has no rerank: take the port's engine
+            from document_search_engine_tpu_torch import SearchEngine
+
+            eng = SearchEngine(device="cpu")
+            eng.build(docs)
+        else:
+            eng = ora
+        got = port_h.evaluate(eng, queries, q_topics, doc_topics,
+                              rerank=rerank)
+        want = ref_h.evaluate(eng, queries, q_topics, doc_topics,
+                              rerank=rerank)
+        assert got["recall@10"] == want["recall@10"]
+        assert got["map"] == want["map"]
+        np.testing.assert_array_equal(got["ids"], want["ids"])
+    assert port_h.parity_report(ora, ora, queries, q_topics, doc_topics) == (
+        ref_h.parity_report(ora, ora, queries, q_topics, doc_topics))
+
+
+def _check_delete_from_hosts():
+    import copy
+
+    from document_search_engine_tpu.config import IndexConfig as RefC
+    from document_search_engine_tpu.engine.engine import (
+        delete_from_hosts as ref_delete,
+    )
+    from document_search_engine_tpu.index import builder as ref_b
+    from document_search_engine_tpu_torch.engine.engine import (
+        delete_from_hosts as port_delete,
+    )
+    from document_search_engine_tpu_torch.index import builder as port_b
+    from document_search_engine_tpu_torch.index.csr import SegmentHost
+
+    texts = _texts()
+    hosts = []
+    for base, part in ((0, texts[:30]), (30, texts[30:55]),
+                       (55, texts[55:])):
+        a = ref_b.analyze_texts_fast(part, RefC())
+        hosts.append(ref_b.build_host_segment(a, base))
+    fields = ("term_hash", "df", "doc_base", "n_docs", "dl", "alive",
+              "doc_hashes", "doc_tfs", "doc_ptr")
+    port_hosts = [SegmentHost(**{f: copy.deepcopy(getattr(h, f))
+                                 for f in fields}) for h in hosts]
+    rng = np.random.default_rng(31)
+    n = sum(h.n_docs for h in hosts)
+    for gids in ([], [0, 0, 29, 30, n - 1, n, -1, 10**9],
+                 rng.integers(-5, n + 5, 40), [0, 29, 30]):
+        assert port_delete(port_hosts, gids) == ref_delete(hosts, gids)
+        for ph, rh in zip(port_hosts, hosts):
+            np.testing.assert_array_equal(ph.alive, rh.alive)
+            np.testing.assert_array_equal(ph.df, rh.df)
+            # and the recount over alive docs agrees with the original's
+            r2 = copy.deepcopy(rh)
+            ref_b.recompute_alive_df(r2)
+            p2 = copy.deepcopy(ph)
+            port_b.recompute_alive_df(p2)
+            np.testing.assert_array_equal(p2.df, r2.df)
+            np.testing.assert_array_equal(p2.df, ph.df)
+
+
 @pytest.mark.parametrize("module", [
     "tokenizer_and_hasher", "native_analyzer", "plan_cache", "oracle",
-    "split_planner", "doc_quantiles",
+    "split_planner", "doc_quantiles", "corpus_loader", "eval_metrics",
+    "eval_harness", "delete_from_hosts",
 ])
 def test_host_module_copy_matches_original(module):
     {
@@ -365,4 +508,8 @@ def test_host_module_copy_matches_original(module):
         "oracle": _check_oracle,
         "split_planner": _check_split_planner,
         "doc_quantiles": _check_doc_quantiles,
+        "corpus_loader": _check_corpus_loader,
+        "eval_metrics": _check_eval_metrics,
+        "eval_harness": _check_eval_harness,
+        "delete_from_hosts": _check_delete_from_hosts,
     }[module]()
