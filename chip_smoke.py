@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one NVIDIA GPU: build -> search_stream,
 the hybrid rerank path search_rerank, the xla_rank, fused_dv and
-doc-range split serving paths, and the index lifecycle (streaming build,
-delete, compact, save/load, the CLI).
+doc-range split serving paths, the index lifecycle (streaming build,
+delete, compact, save/load, the CLI), and the sharded engine
+(DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card).
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -116,9 +117,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    final compact), the delete, the compact, save and load; the peak
    device bytes of the build and the compact; the checkpoint's bytes;
    serving q/s after the compact (the median of 5 passes).
+8. The sharded engine at full size (phase_sharded), on phase 4's corpus
+   and batches, every shard on the card: for each of 1, 2, 4 and 8
+   shards a DistributedSearchEngine built from the corpus, whose results
+   equal phase 4's on all queries and whose fused kernel launched once
+   per shard and bucket. At 4 shards: scorer "xla_rank", split_rows 128
+   and a host build (device_build = False; its value planes torch.equal
+   to the device build's) equal phase 4's results, and search_rerank
+   (k=10, 64 candidates, dim 256) equals phase 5's single-engine rerank;
+   then the lifecycle beside phase 4's engine, which phase 7 left with
+   the same delete: delete of phase 7's 100,000 ids, add_docs of 10,000
+   new docs and compact, each equal to the single engine on all
+   queries, then save and DistributedSearchEngine.load on 2 shards
+   (elastic reshard), equal to the saved engine; the CLI's `index
+   --shards 2` on a 2,000-doc corpus and its search and serve on the
+   card, whose hits equal the library's. fused_search,
+   fused_search_large_k, fused_search_split, rank_only and rerank_dots
+   must each have launched on the sharded path. Reported per shard
+   count: build seconds and peak bytes above the start, resident bytes,
+   serving q/s (median of 3 passes), the host's dispatch and collect ms
+   a batch; the time of each lifecycle step and the checkpoint's bytes.
 
-stdout ends with the lifecycle path's JSON line, the kernels' JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}} as the last line. Progress goes
+stdout ends with the lifecycle path's JSON line, the sharded path's,
+the kernels' JSON line, the card's name and power limit, and {"ok":
+true, "device": {...}} as the last line. Progress goes
 to stderr. chip_ab.py runs this script in several trees in turn, for a
 comparison on one card in one go.
 """
@@ -175,6 +197,11 @@ PATHS = (
 # delete_docs call tombstones (10%), and the CLI's corpus and queries
 STREAM_BATCH_DOCS, N_DELETE = 125_000, 100_000
 CLI_DOCS, CLI_QUERIES = 2_000, 16
+# phase 8: the shard counts (every shard on the one card), the count the
+# further paths and the lifecycle run at, the count its checkpoint is
+# reloaded on, the docs its add brings, and the timed serving passes
+SHARD_COUNTS, SHARDED_AT, RESHARD_TO = (1, 2, 4, 8), 4, 2
+N_ADD, SHARDED_PASSES = 10_000, 3
 PLANES = ("post_doc", "post_val", "post_tf", "indptr", "row_start")
 
 
@@ -1847,7 +1874,8 @@ def dots_bound(gids, nq, kc, dim):
 
 
 def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
-    """Phase 5: search_rerank at full size on phase 4's index."""
+    """Phase 5: search_rerank at full size on phase 4's index. Returns
+    (results, the counted run's (ids, rerank, lexical) per batch)."""
     import torch
 
     from document_search_engine_tpu_torch.ops import fused as F
@@ -2027,7 +2055,7 @@ def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
         f"{res['dots_library_equal']}), gather + bmm "
         f"{res['dots_gather_bmm_ms']:.3f} ms, bound "
         f"{res['dots_bound_ms']:.4f} ms ({res['dots_rows']} distinct rows)")
-    return res
+    return res, outs
 
 
 def path_launches(name):
@@ -2162,18 +2190,24 @@ def cache_bytes(eng):
 HIT_LINE = r"^\s*(\d+)\. (\S+)  score=([0-9.]+)  \(doc (\d+)\)$"
 
 
-def phase_cli(device, seed=13):
-    """Step 6 of phase 7: the CLI with its default device (the card, which
-    must be `device`) on a small corpus written as files: index, then
-    search for each query and serve them all from a stdin stream; the
-    printed hits must equal SearchEngine.load(index).search on the same
-    queries."""
+def phase_cli(device, seed=13, shards=0):
+    """Step 6 of phase 7 (and step 4 of phase 8, with `shards`): the CLI
+    with its default device (the card, which must be `device`) on a
+    small corpus written as files: index (`--shards N` when shards > 0),
+    then search for each query and serve them all from a stdin stream;
+    the printed hits must equal the library's on the saved index
+    (SearchEngine.load, or DistributedSearchEngine.load for a sharded
+    one) on the same queries."""
     import contextlib
     import io
     import re
     import tempfile
 
-    from document_search_engine_tpu_torch import SearchEngine, cli
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        SearchEngine,
+        cli,
+    )
     from document_search_engine_tpu_torch.corpus.synth import (
         synth_corpus,
         synth_queries,
@@ -2198,14 +2232,24 @@ def phase_cli(device, seed=13):
             with open(os.path.join(corpus, f"doc_{i:05d}.txt"), "w") as f:
                 f.write(text)
         t0 = time.perf_counter()
-        info = json.loads(run(["index", corpus, "--out", idx]))
+        extra = ["--shards", str(shards)] if shards else []
+        info = json.loads(run(["index", corpus, "--out", idx] + extra))
         if info["docs"] != CLI_DOCS:
             raise AssertionError(f"cli index: {info}")
         with open(os.path.join(idx, "docnames.json")) as f:
             names = json.load(f)
-        lib = SearchEngine.load(idx)
-        if lib.device != device:
-            raise AssertionError(f"SearchEngine.load opened on {lib.device}")
+        with open(os.path.join(idx, "meta.json")) as f:
+            saved_shards = json.load(f).get("n_shards", 0)
+        if saved_shards != shards:
+            raise AssertionError(f"cli index saved {saved_shards} shards")
+        if shards:
+            lib = DistributedSearchEngine.load(idx)
+            where = lib.mesh.dst
+        else:
+            lib = SearchEngine.load(idx)
+            where = lib.device
+        if where != device:
+            raise AssertionError(f"the index opened on {where}")
         ids, scores = lib.search(queries, k=K)
         sb = lib.config.scoring.scale_bits
         n_hits = 0
@@ -2236,6 +2280,12 @@ def phase_cli(device, seed=13):
         raise AssertionError("the CLI's queries found nothing")
     return {"cli_docs": CLI_DOCS, "cli_queries": CLI_QUERIES,
             "cli_hits": n_hits, "cli_s": dt}
+
+
+def deleted_ids(rng, n_docs):
+    """The N_DELETE ids phase 7's delete tombstones (phase 8 deletes the
+    same ones from its sharded engine)."""
+    return rng.choice(n_docs, size=N_DELETE, replace=False)
 
 
 def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
@@ -2304,7 +2354,7 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
 
     # 2. one delete of 10%, on both engines
     rng = np.random.default_rng(seed)
-    dead = rng.choice(len(texts), size=N_DELETE, replace=False)
+    dead = deleted_ids(rng, len(texts))
     sync()
     t0 = time.perf_counter()
     seng.delete_docs(dead)
@@ -2417,6 +2467,248 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
     return res
 
 
+# ------------------------------------------------------------ phase 8
+def serve_timed(eng, batches, passes):
+    """Median q/s of `passes` search_stream passes over the batches
+    (host clock ending in a sync), and each pass's q/s."""
+    import torch
+
+    qps = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        serve_all(eng, batches)
+        torch.cuda.synchronize()
+        qps.append(NQ * len(batches) / (time.perf_counter() - t0))
+    return float(np.median(qps)), qps
+
+
+def counted_pass(eng, batches, k=K):
+    """One search_stream pass with the launch counts set to 0 just
+    before it and the host's dispatch/collect ms recorded. Returns (outs,
+    the counts read just after, host record, seconds)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.rank import rank_kernel
+
+    rec, restore = host_timers(eng)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = list(eng.search_stream(batches, k=k, depth=DEPTH))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    restore()
+    counts = {
+        "fused_search": F.fused_search.launches,
+        "fused_search_large_k": F.fused_search.launches_large_k,
+        "fused_search_split": F.fused_search.launches_dlim,
+        "rank_only": rank_kernel.launches,
+    }
+    return outs, counts, rec, dt
+
+
+def timed_step(fn):
+    """Seconds of fn() on the host clock, ending in a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
+    """Phase 8: the sharded engine at full size, on phase 4's corpus and
+    query batches, every shard on the one card. Step 1, for each of
+    SHARD_COUNTS: a DistributedSearchEngine built from the corpus whose
+    results equal phase 4's on all queries; the fused kernel launched
+    once per shard and bucket. Step 2, at SHARDED_AT shards: scorer
+    xla_rank, split_rows 128 and a host build (its value planes equal
+    to the device build's) equal phase 4's results, and search_rerank
+    equals phase 5's single-engine rerank. Step 3, the lifecycle at
+    SHARDED_AT shards beside phase 4's engine (which phase 7 left with
+    the same delete): the delete of phase 7's ids, an add of N_ADD new
+    docs and a compact, equal to the single engine after each; a save
+    and a load on RESHARD_TO shards, equal to the saved engine. Step 4,
+    the CLI's index --shards 2 and search on the card. Step 5: every
+    kernel of the path launched."""
+    import tempfile
+
+    import torch
+
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops import rerank as R
+
+    cfg = eng.config
+    nq = NQ * len(batches)
+    res = {"n_docs": len(texts), "shard_counts": list(SHARD_COUNTS),
+           "per_shards": {}}
+    launches = {}
+
+    # 1. each shard count: build, results, serving, host ms a batch
+    keep = None
+    for n in SHARD_COUNTS:
+        r = {}
+        deng = DistributedSearchEngine(cfg, mesh=make_mesh(n))
+        r["devices"] = sorted({str(d) for d in deng.mesh.devices})
+        if any(d.type != eng.device.type for d in deng.mesh.devices):
+            raise AssertionError(f"{deng.mesh}: not on {eng.device.type}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        _o, r["build_s"] = timed_step(lambda: deng.build(texts))
+        r["build_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - m0
+        r["resident_bytes"] = deng.resident_bytes()
+        idx = deng.index
+        r.update(d_pad=idx.d_pad, t_pad=idx.t_pad, x_rows=idx.x_rows)
+        deng.preplan(batches, k=K)
+        _o, r["warmup_s"] = timed_step(
+            lambda: deng.warmup(queries=batches[0], k=K))
+        outs, counts, rec, dt = counted_pass(deng, batches)
+        assert_outs_equal(outs, base_outs, f"{n} shards vs phase 4")
+        buckets = [len(f[1]) for f in rec["futs"]]
+        r["buckets_per_batch"] = buckets
+        r["launches"] = counts["fused_search"]
+        if r["launches"] != n * sum(buckets):
+            raise AssertionError(
+                f"{n} shards: {r['launches']} fused launches, expected one "
+                f"per shard and bucket ({n} x {sum(buckets)})")
+        launches.setdefault("fused_search", 0)
+        launches["fused_search"] += r["launches"]
+        r["dispatch_ms"] = float(np.median(rec["dispatch_ms"]))
+        r["collect_ms"] = float(np.median(rec["collect_ms"]))
+        r["serving_qps_counted_pass"] = nq / dt
+        r["serving_qps"], r["serving_qps_passes"] = serve_timed(
+            deng, batches, SHARDED_PASSES)
+        res["per_shards"][str(n)] = r
+        log(f"{n} shards: build {r['build_s']:.2f}s (peak "
+            f"{r['build_peak_extra_bytes']} B above the start), resident "
+            f"{r['resident_bytes']} B (x_rows {idx.x_rows}, d_pad "
+            f"{idx.d_pad}); all {nq} results == phase 4's; "
+            f"{r['launches']} fused launches ({n} x {sum(buckets)} buckets)"
+            f"; median {r['serving_qps']:.1f} q/s; host ms a batch: "
+            f"dispatch {r['dispatch_ms']:.2f}, collect {r['collect_ms']:.2f}")
+        if n == SHARDED_AT:
+            keep = deng
+        del deng
+    deng = keep
+
+    # 2. the further paths and the rerank at SHARDED_AT shards
+    for scorer, split, name in (("xla_rank", None, "rank_only"),
+                                ("fused", 128, "fused_search_split")):
+        deng.scorer, deng.split_rows = scorer, split
+        deng.preplan(batches, k=K)
+        deng.warmup(queries=batches[0], k=K)
+        outs, counts, rec, dt = counted_pass(deng, batches)
+        assert_outs_equal(outs, base_outs, f"{name} at {SHARDED_AT} shards")
+        launches[name] = counts[name]
+        res[name] = {"launches": counts[name], "qps_counted_pass": nq / dt,
+                     "dispatch_ms": float(np.median(rec["dispatch_ms"])),
+                     "collect_ms": float(np.median(rec["collect_ms"]))}
+        log(f"{SHARDED_AT} shards, {name}: all {nq} results == phase 4's, "
+            f"{counts[name]} launches, {nq / dt:.1f} q/s (counted pass)")
+    deng.scorer, deng.split_rows = None, None
+
+    heng = DistributedSearchEngine(cfg, mesh=make_mesh(SHARDED_AT))
+    heng.device_build = False
+    _o, res["host_build_s"] = timed_step(lambda: heng.build(texts))
+    same = [bool(torch.equal(a, b))
+            for a, b in zip(heng.index.post_val, deng.index.post_val)]
+    if not all(same):
+        raise AssertionError(f"host-built value planes differ: {same}")
+    assert_outs_equal(serve_all(heng, batches), base_outs, "host build")
+    del heng
+    log(f"{SHARDED_AT} shards, host build: {res['host_build_s']:.2f}s; "
+        f"value planes == the device build's; all {nq} results == phase 4's")
+
+    rk, kk, dim = RERANK_K, CANDIDATES, DIM
+    deng.preplan(batches, k=kk)
+    deng.search_rerank(batches[0], k=rk, dim=dim, candidates=kk)  # warm
+    reset_launches()
+    R.gather_and_dot.launches = 0
+    t0 = time.perf_counter()
+    r_outs = [deng.search_rerank(b, k=rk, dim=dim, candidates=kk)
+              for b in batches]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["fused_search_large_k"] = F.fused_search.launches_large_k
+    launches["rerank_dots"] = R.gather_and_dot.launches
+    for b, (got, want) in enumerate(zip(r_outs, rerank_outs)):
+        for g, w, what in zip(got, want, ("ids", "rerank", "lex")):
+            np.testing.assert_array_equal(g, w, f"rerank batch {b} {what}")
+    res["rerank"] = {"qps_counted_pass": nq / dt,
+                     "launches_large_k": launches["fused_search_large_k"],
+                     "dots_launches": launches["rerank_dots"]}
+    log(f"{SHARDED_AT} shards, search_rerank: all {nq} results == phase "
+        f"5's single engine; {nq / dt:.1f} q/s; launches large-k "
+        f"{launches['fused_search_large_k']}, dots {launches['rerank_dots']}")
+
+    # 3. the lifecycle beside phase 4's engine (phase 7 deleted the same
+    # ids from it)
+    dead = deleted_ids(np.random.default_rng(seed), len(texts))
+    _o, res["delete_s"] = timed_step(lambda: deng.delete_docs(dead))
+    want = serve_all(eng, batches)
+    got = serve_all(deng, batches)
+    assert_outs_equal(got, want, "sharded delete vs the single engine")
+    if any(np.isin(ids, dead).any() for ids, _sc in got):
+        raise AssertionError("a deleted doc came back")
+    add_texts = synth_text_batches(N_ADD, VOCAB, MEAN_LEN, N_ADD,
+                                   seed=seed + 6)[1]
+    idx_before = deng.index
+    new_ids, res["add_s"] = timed_step(lambda: deng.add_docs(add_texts))
+    # True: the add fit the padded shapes (_update_last_shard)
+    res["add_in_place"] = deng.index is idx_before
+    if new_ids != eng.add_docs(add_texts):
+        raise AssertionError("add_docs gave other ids")
+    assert_outs_equal(serve_all(deng, batches), serve_all(eng, batches),
+                      "sharded add vs the single engine")
+    _o, res["compact_s"] = timed_step(deng.compact)
+    eng.compact()
+    c_outs = serve_all(deng, batches)
+    assert_outs_equal(c_outs, serve_all(eng, batches),
+                      "sharded compact vs the single engine")
+    res["resident_after_compact"] = deng.resident_bytes()
+    with tempfile.TemporaryDirectory() as d:
+        _o, res["save_s"] = timed_step(lambda: deng.save(d))
+        res["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        leng, res["load_s"] = timed_step(lambda: DistributedSearchEngine.load(
+            d, mesh=make_mesh(RESHARD_TO)))
+    if leng.index.n_shards != RESHARD_TO:
+        raise AssertionError(f"loaded on {leng.index.n_shards} shards")
+    assert_outs_equal(serve_all(leng, batches), c_outs,
+                      f"loaded on {RESHARD_TO} shards")
+    del leng
+    log(f"{SHARDED_AT} shards, lifecycle: delete {N_DELETE} "
+        f"{res['delete_s']:.2f}s, add {N_ADD} {res['add_s']:.2f}s, compact "
+        f"{res['compact_s']:.2f}s, save {res['save_s']:.2f}s "
+        f"({res['checkpoint_bytes']} B on disk), load on {RESHARD_TO} "
+        f"shards {res['load_s']:.2f}s; all {nq} results == the single "
+        "engine's after each step, and the reloaded engine's == the saved")
+    del deng
+
+    # 4. the CLI's sharded index on the card
+    # the default mesh's device: the card
+    cli = phase_cli(make_mesh(1).dst, shards=2)
+    res.update({f"sharded_{key}": v for key, v in cli.items()})
+    log(f"cli: index --shards 2, {CLI_QUERIES} searches and serve on the "
+        f"card in {cli['cli_s']:.2f}s, {cli['cli_hits']} hits == the "
+        "library's")
+
+    # 5. every kernel of the path launched
+    res["launches"] = launches
+    for name in ("fused_search", "fused_search_large_k",
+                 "fused_search_split", "rank_only", "rerank_dots"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"phase 8: {name} never launched")
+    return res
+
+
 def thread_sweep(threads=(256, 1024)):
     """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
     each bucket of one main-path batch (fused at k = 10 and 64, the dv
@@ -2523,13 +2815,15 @@ def main() -> int:
     res, eng, batches, outs, texts = phase_main(device, diffs)
     res["kernel_build_s"] = build_s
     print("main path: " + json.dumps(res), flush=True)
-    rr = phase_rerank(eng, batches, diffs)
+    rr, rerank_outs = phase_rerank(eng, batches, diffs)
     print("rerank path: " + json.dumps(rr), flush=True)
     pp = phase_paths(eng, batches, outs, diffs)
     print("further paths: " + json.dumps(pp), flush=True)
     lc = phase_lifecycle(eng, batches, outs, texts)
-    del texts
     print("lifecycle path: " + json.dumps(lc), flush=True)
+    sh = phase_sharded(eng, batches, outs, rerank_outs, texts)
+    del texts
+    print("sharded path: " + json.dumps(sh), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],

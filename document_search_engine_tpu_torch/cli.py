@@ -7,10 +7,10 @@
 
 Port of `document_search_engine_tpu/cli.py`, with the same commands,
 options and output lines. Every command runs on the card unless given
-`--device cpu`. An index saved by either package opens here. Not ported
-yet, and refused with NotImplementedError naming its ROADMAP item: the
-sharded index (`index --shards N`, and opening a sharded checkpoint;
-A13) and `bench` (A6).
+`--device cpu`. An index saved by either package opens here, a sharded
+one (`index --shards N`) with DistributedSearchEngine on one shard a
+card (one on the CPU). Not ported yet, and refused with
+NotImplementedError naming its ROADMAP item: `bench` (A6).
 """
 from __future__ import annotations
 
@@ -27,13 +27,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _open_index(index_dir: str, device):
-    """Open a single-engine checkpoint; a sharded one is refused."""
+    """Open a checkpoint with the engine of its kind (the meta records
+    whether it is a sharded index)."""
     from .engine.engine import SearchEngine
 
     with open(f"{index_dir}/meta.json") as f:
         meta = json.load(f)
     if meta.get("sharded"):
-        raise _not_ported("a sharded index (DistributedSearchEngine)", "A13")
+        from .parallel.dist import DistributedSearchEngine
+        from .parallel.mesh import make_mesh
+
+        return DistributedSearchEngine.load(
+            index_dir, mesh=make_mesh(device=device)
+        )
     return SearchEngine.load(index_dir, device=device)
 
 
@@ -42,26 +48,33 @@ def cmd_index(args):
     from .corpus.loader import load_dir
     from .engine.engine import SearchEngine
 
-    if args.shards:
-        raise _not_ported("index --shards (the sharded engine)", "A13")
     docs = load_dir(args.corpus_dir)
     if not docs:
         print(f"no documents found under {args.corpus_dir}", file=sys.stderr)
         return 1
     names = [n for n, _ in docs]
     cfg = IndexConfig(scoring=ScoringConfig(kind=args.kind))
-    eng = SearchEngine(cfg, device=args.device)
+    if args.shards:
+        from .parallel.dist import DistributedSearchEngine
+        from .parallel.mesh import make_mesh
+
+        eng = DistributedSearchEngine(
+            cfg, mesh=make_mesh(args.shards, device=args.device)
+        )
+    else:
+        eng = SearchEngine(cfg, device=args.device)
     t0 = time.perf_counter()
     eng.build([t for _, t in docs])
     dt = time.perf_counter() - t0
     eng.save(args.out)
     with open(f"{args.out}/docnames.json", "w") as f:
         json.dump(names, f)
+    stats = eng.index.stats if args.shards else eng.stats
     print(
         json.dumps(
             {
                 "docs": len(docs),
-                "terms": int(len(eng.stats.vocab)),
+                "terms": int(len(stats.vocab)),
                 "build_secs": round(dt, 2),
                 "docs_per_sec": round(len(docs) / dt, 1),
                 "out": args.out,
@@ -192,8 +205,8 @@ def main(argv=None):
         "--shards",
         type=int,
         default=0,
-        help="a document-sharded index over N devices (not ported yet; "
-        "0 = single engine)",
+        help="a document-sharded index of N shards over the device's "
+        "cards (all on one card when it has one; 0 = single engine)",
     )
     pi.set_defaults(fn=cmd_index)
 

@@ -301,6 +301,10 @@ class SearchEngine:
         self.n_docs_total = 0
         # None = "fused" on CUDA, "xla" on the CPU (scorer_mode)
         self.scorer: str | None = None
+        # segments are built on the device (builder.build_segment_device);
+        # False takes the host build path (builder.build_segment), which
+        # gives the same planes and results
+        self.device_build: bool = True
         # segment lifecycle policy (the reference's): compact when the
         # segment count passes auto_compact_segments, or when tombstoned
         # docs' postings pass auto_compact_dead_frac of all postings;
@@ -357,14 +361,25 @@ class SearchEngine:
         self._maybe_auto_compact()
 
     def _append_segment(self, texts) -> None:
-        """Analyze and build one segment on the device, with its doc ids
-        following the engine's last."""
+        """Analyze and build one segment, with its doc ids following the
+        engine's last."""
         analyzed = builder.analyze_texts_fast(texts, self.config)
-        host, dev_seg = builder.build_segment_device(
-            analyzed, self.config, self.device, doc_base=self.n_docs_total
-        )
+        host, dev_seg = self._build_segment(analyzed, self.n_docs_total)
         self.segments.append([host, dev_seg])
         self.n_docs_total += host.n_docs
+
+    def _build_segment(self, analyzed, doc_base: int):
+        """One segment: the device build by default, the host build path
+        when device_build is off (its values are left for the refresh
+        that every caller runs next)."""
+        if self.device_build:
+            return builder.build_segment_device(
+                analyzed, self.config, self.device, doc_base=doc_base
+            )
+        return builder.build_segment(
+            analyzed, self.config, self.device, doc_base=doc_base,
+            materialize=False,
+        )
 
     def _refresh_stats_and_vals(self) -> None:
         """Re-merge global stats; re-materialize the df/avgdl-dependent
@@ -434,8 +449,8 @@ class SearchEngine:
         Vectorized: per segment one np.repeat keep-mask over the doc_ptr
         lens selects the alive docs' postings, and since segments cover
         contiguous global-id ranges, lens, dl and dead scatter as
-        slices. The merged docs are built on the device like any
-        segment, with the planes in (row, doc) order."""
+        slices. The merged docs are built like any segment, with the
+        planes in (row, doc) order."""
         if not self.segments:
             return
         n = self.n_docs_total
@@ -459,9 +474,7 @@ class SearchEngine:
             doc_ptr=ptr,
             dl=dl,
         )
-        host, dev_seg = builder.build_segment_device(
-            analyzed, self.config, self.device, doc_base=0
-        )
+        host, dev_seg = self._build_segment(analyzed, 0)
         host.alive[dead] = False
         self.segments = [[host, dev_seg]]
         self._refresh_stats_and_vals()
@@ -693,9 +706,10 @@ class SearchEngine:
         """(offs_h, offs_d): the segment's (T, P+1) int32 doc-quantile
         table for doc-range splitting, on the host for the planner and
         on the device for the plan expansion. Built on the device from
-        the resident doc plane (builder.device_row_doc_quantiles; the
-        port keeps no host postings) and cached per segment while its
-        doc plane is the same tensor (every mutation drops the cache)."""
+        the resident doc plane (builder.device_row_doc_quantiles, for
+        device- and host-built segments alike) and cached per segment
+        while its doc plane is the same tensor (every mutation drops the
+        cache)."""
         ent = self._quant_cache.get(si)
         if ent is not None and ent[0] is dev_seg.post_doc:
             return ent[1], ent[2]

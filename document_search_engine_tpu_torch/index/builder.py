@@ -1,10 +1,15 @@
-"""Index build: host analyze frontend + torch CSR packing on the device.
+"""Index build: host analyze frontend + CSR packing, on the device or on
+the host.
 
-Port of `document_search_engine_tpu/index/builder.py` (the device build
-path). The numpy helpers are the reference's code; the device half
+Port of `document_search_engine_tpu/index/builder.py`. The numpy helpers
+are the reference's code, and so is the host build path (`host_pack`,
+`build_host_segment`, `segment_vals`, `build_segment`,
+`pack_device_segment`: the CSR and the spec-exact values on the host,
+then one copy of the planes to the device). The device half
 (`device_pack`, `device_align_planes`, `device_materialize_vals`,
-`build_segment_device`, `refresh_segment_vals`) is written in torch ops
-and produces the reference's planes bit for bit (tests/test_torch_build).
+`build_segment_device`, `refresh_segment_vals`,
+`device_row_doc_quantiles_b`) is written in torch ops and produces the
+reference's planes bit for bit (tests/test_torch_build).
 
 Two reference semantics do not carry over and are made explicit here:
 JAX drops out-of-range scatter updates and clamps out-of-range gathers,
@@ -144,6 +149,14 @@ def segment_vocab(analyzed: AnalyzedDocs):
     return vocab, rows, df
 
 
+def host_pack(rows, docs, tfs, n_terms, n_docs):
+    """numpy CSR pack: sort triples by (row, doc), build indptr."""
+    order = np.lexsort((docs, rows))
+    r, d, t = rows[order], docs[order], tfs[order]
+    indptr = np.searchsorted(r, np.arange(n_terms + 1)).astype(np.int32)
+    return r, d.astype(np.int32), t.astype(np.int32), indptr
+
+
 def device_pack(
     rows: torch.Tensor,  # (nnz,) int32 term rows; sentinel n_terms
     docs: torch.Tensor,  # (nnz,) int32 doc ids; sentinel n_docs
@@ -279,8 +292,9 @@ def host_row_doc_quantiles(
     """(T, p+1) int32: offs[t, j] = count of row t's postings with
     doc < D_j (quantile_doc_bounds); offs[:, 0] = 0, offs[:, p] = row
     length. Vectorized: one cumsum of (doc < D) per interior threshold.
-    The engine keeps no host postings and uses the device form; this one
-    is the tests' yardstick."""
+    The engines build their tables on the device from the resident doc
+    planes (device_row_doc_quantiles); this one is the tests'
+    yardstick."""
     t_n = len(indptr) - 1
     offs = np.zeros((t_n, p + 1), np.int32)
     if t_n == 0:
@@ -302,23 +316,37 @@ def device_row_doc_quantiles(
     p: int,
     n_docs: int,
 ) -> torch.Tensor:
-    """host_row_doc_quantiles over the ALIGNED device plane: per (row,
-    interior threshold) a branch-free int32 binary search of 32 steps on
-    the row's doc-ascending records, all (T, p-1) searches at once.
-    Sentinel padding (doc = n_docs) sorts past every threshold. A probe
+    """host_row_doc_quantiles over the ALIGNED device plane, with the
+    interior thresholds of quantile_doc_bounds(p, n_docs)."""
+    bounds = torch.from_numpy(
+        quantile_doc_bounds(p, n_docs)[1:p].astype(np.int32)
+    ).to(post_doc2.device)
+    return device_row_doc_quantiles_b(post_doc2, indptr, row_start, bounds)
+
+
+def device_row_doc_quantiles_b(
+    post_doc2: torch.Tensor,  # (X, 128) i32 aligned doc plane
+    indptr: torch.Tensor,  # (T+1,) i32 true cumulative lengths
+    row_start: torch.Tensor,  # (T,) i32 aligned flat record starts
+    bounds: torch.Tensor,  # (p-1,) i32 INTERIOR thresholds (the sharded
+    #                        engine passes each shard's own local bounds)
+) -> torch.Tensor:
+    """(T, p+1) int32 doc-quantile table: per (row, interior threshold)
+    a branch-free int32 binary search of 32 steps on the row's
+    doc-ascending records, all (T, p-1) searches at once. Sentinel
+    padding (doc >= every local doc) sorts past every threshold. A probe
     past a row's end reads the next row's records (a row whose length is
-    a multiple of 128, or a zero-length row), so the result is clamped
-    to the row length, as the reference does. Probes outside the plane
-    clamp to its last record, as XLA's gather does."""
+    a multiple of 128, or a zero-length row: the sharded engine's global
+    row tables hold one for every term a shard lacks), so the result is
+    clamped to the row length, as the reference does. Probes outside the
+    plane clamp to its last record, as XLA's gather does."""
     dev = post_doc2.device
     flat = post_doc2.reshape(-1)
     lens = indptr[1:] - indptr[:-1]
     t_n = int(row_start.shape[0])
-    bounds = torch.from_numpy(
-        quantile_doc_bounds(p, n_docs)[1:p].astype(np.int32)
-    ).to(dev)
-    lo = torch.zeros((t_n, p - 1), dtype=torch.int32, device=dev)
-    hi = lens[:, None].expand(t_n, p - 1).contiguous()
+    n_thr = int(bounds.shape[0])
+    lo = torch.zeros((t_n, n_thr), dtype=torch.int32, device=dev)
+    hi = lens[:, None].expand(t_n, n_thr).contiguous()
     start = row_start[:, None].long()
     last = max(int(flat.numel()) - 1, 0)
     for _ in range(32):
@@ -351,6 +379,41 @@ def aligned_geometry(indptr: np.ndarray, pad_to: int):
         round_up(total + NNZ_SLICE_MARGIN, max(pad_to, LANES)), LANES
     )
     return row_start, records // LANES
+
+
+def _aligned_positions(indptr: np.ndarray, row_start: np.ndarray):
+    """(nnz,) flat aligned position of each posting (host)."""
+    lens = np.diff(indptr).astype(np.int64)
+    off = np.arange(int(indptr[-1]), dtype=np.int64) - np.repeat(
+        indptr[:-1].astype(np.int64), lens
+    )
+    return np.repeat(row_start, lens) + off
+
+
+def _host_planes(
+    post_doc: np.ndarray,
+    vals: np.ndarray,
+    post_tf: np.ndarray,
+    indptr: np.ndarray,
+    row_start: np.ndarray,
+    x_rows: int,
+    n_docs: int,
+):
+    """Host assembly of the aligned (X, 128) doc/val/tf planes; the doc
+    plane's padding is n_docs."""
+    pos = _aligned_positions(indptr, row_start)
+    d = np.full(x_rows * LANES, n_docs, np.int32)
+    v = np.zeros(x_rows * LANES, np.int32)
+    t = np.zeros(x_rows * LANES, np.int32)
+    d[pos] = post_doc
+    if len(vals):
+        v[pos] = np.asarray(vals, np.float32).view(np.int32)
+    t[pos] = post_tf
+    return (
+        d.reshape(x_rows, LANES),
+        v.reshape(x_rows, LANES),
+        t.reshape(x_rows, LANES),
+    )
 
 
 def host_k_doc(dl: np.ndarray, config: IndexConfig, stats: GlobalStats):
@@ -443,6 +506,141 @@ def doc_inv_norms(
         sumsq = spec.seq_sumsq(mat, axis=1)
         out[c0:c1] = spec.inv_norm_from_sumsq(sumsq)
     return out
+
+
+def materialize_vals(
+    post_doc: np.ndarray,
+    post_tf: np.ndarray,
+    dl: np.ndarray,
+    inv_norm: np.ndarray,
+    config: IndexConfig,
+    stats: GlobalStats,
+) -> np.ndarray:
+    """Materialized posting values on the host, spec-exact:
+    tfidf: val = tf * inv_norm[doc]
+    bm25:  val = tf*(k1+1)/(tf + c0 + c1*dl[doc])"""
+    sc = config.scoring
+    if sc.kind == "tfidf":
+        return spec.val_tfidf(post_tf, inv_norm[post_doc])
+    avgdl = spec.avgdl_of(stats.total_len_alive, stats.n_alive)
+    return spec.val_bm25(post_tf, dl[post_doc].astype(F32), sc.k1, sc.b, avgdl)
+
+
+def build_segment(
+    analyzed: AnalyzedDocs,
+    config: IndexConfig,
+    device,
+    doc_base: int = 0,
+    stats: GlobalStats | None = None,
+    materialize: bool = True,
+) -> tuple:
+    """The host build path: one (SegmentHost, SegmentDevice), the CSR
+    packed on the host, then the planes copied to `device`. `stats`
+    defaults to this segment's own vocabulary and df; with
+    materialize=False the values are left zero for a device refresh
+    (refresh_segment_vals) to fill, as every engine caller does."""
+    host = build_host_segment(analyzed, doc_base)
+    if stats is None:
+        stats = GlobalStats(
+            vocab=host.term_hash,
+            df=host.df.copy(),
+            n_alive=host.n_docs,
+            total_len_alive=int(analyzed.dl.sum()),
+        )
+    dev_seg = pack_device_segment(
+        host, config, stats, device, materialize=materialize
+    )
+    return host, dev_seg
+
+
+def build_host_segment(analyzed: AnalyzedDocs, doc_base: int) -> SegmentHost:
+    """Host segment assembly: vocab and df, then the numpy CSR pack; the
+    host keeps the packed postings (post_doc, post_tf)."""
+    n_docs = analyzed.n_docs
+    vocab, rows, df = segment_vocab(analyzed)
+    docs = np.repeat(
+        np.arange(n_docs, dtype=np.int32),
+        np.diff(analyzed.doc_ptr).astype(np.int64),
+    )
+    _r, d, t, indptr = host_pack(
+        rows, docs, analyzed.tfs, len(vocab), n_docs
+    )
+    return SegmentHost(
+        term_hash=vocab,
+        df=df,
+        doc_base=doc_base,
+        n_docs=n_docs,
+        dl=analyzed.dl.copy(),
+        alive=np.ones(n_docs, dtype=bool),
+        doc_hashes=analyzed.hashes,
+        doc_tfs=analyzed.tfs,
+        doc_ptr=analyzed.doc_ptr,
+        indptr=indptr,
+        post_doc=d,
+        post_tf=t,
+    )
+
+
+def segment_vals(host: SegmentHost, config: IndexConfig, stats: GlobalStats):
+    """(vals, inv_norm) per the current stats and alive flags, on the
+    host and spec-exact; tombstoned docs' values fold to 0."""
+    kind = config.scoring.kind
+    if kind == "tfidf":
+        analyzed = AnalyzedDocs(
+            hashes=host.doc_hashes,
+            tfs=host.doc_tfs,
+            doc_ptr=host.doc_ptr,
+            dl=host.dl,
+        )
+        inv_norm = doc_inv_norms(analyzed, stats, kind)
+    else:
+        inv_norm = np.zeros(host.n_docs, dtype=F32)
+    vals = materialize_vals(
+        host.post_doc,
+        host.post_tf.astype(F32),
+        host.dl.astype(F32),
+        inv_norm,
+        config,
+        stats,
+    )
+    vals = vals * host.alive[host.post_doc].astype(F32)
+    return vals, inv_norm
+
+
+def pack_device_segment(
+    host: SegmentHost,
+    config: IndexConfig,
+    stats: GlobalStats,
+    device,
+    materialize: bool = True,
+) -> SegmentDevice:
+    """Copy a host segment's CSR to `device` in the aligned-plane layout
+    (indptr and row_start at their true lengths, the planes at the
+    geometry's row count). With materialize=False the values are zero:
+    callers that refresh right after skip a second materialization."""
+    n_docs = host.n_docs
+    d_pad = round_up(n_docs + 1, config.docs_pad_to)
+    row_start, x_rows = aligned_geometry(host.indptr, config.nnz_pad_to)
+    host.row_start = row_start
+    if materialize:
+        vals, inv_norm = segment_vals(host, config, stats)
+    else:
+        vals = np.zeros(0, dtype=F32)
+        inv_norm = np.zeros(n_docs, dtype=F32)
+    d2, v2, t2 = _host_planes(
+        host.post_doc, vals, host.post_tf, host.indptr, row_start,
+        x_rows, n_docs,
+    )
+    return SegmentDevice(
+        indptr=_to_device(host.indptr.astype(np.int32), device),
+        row_start=_to_device(row_start.astype(np.int32), device),
+        post_doc=_to_device(d2, device),
+        post_val=_to_device(v2, device),
+        post_tf=_to_device(t2, device),
+        dl=_to_device(_pad(host.dl.astype(F32), d_pad, 0, np.float32), device),
+        alive=_to_device(_pad(host.alive, d_pad, False, bool), device),
+        inv_norm=_to_device(_pad(inv_norm, d_pad, 0, np.float32), device),
+    )
 
 
 def _pad(a, size, fill, dtype):

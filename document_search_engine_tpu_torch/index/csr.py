@@ -66,9 +66,15 @@ class SegmentHost:
     doc_tfs: np.ndarray = field(repr=False, default=None)
     doc_ptr: np.ndarray = field(repr=False, default=None)
     # host copies of the true-prefix indptr and the aligned row starts
-    # (query planning); the postings themselves stay on the device
+    # (query planning), and of the packed postings (doc, tf) in CSR
+    # order: the host build path (builder.build_host_segment) fills
+    # them, a device build leaves them None and the postings live on the
+    # device only; the sharded engine re-derives them where a host
+    # assembly needs them (parallel/dist.py _ensure_host_csr)
     indptr: np.ndarray = field(repr=False, default=None)
     row_start: np.ndarray = field(repr=False, default=None)
+    post_doc: np.ndarray = field(repr=False, default=None)
+    post_tf: np.ndarray = field(repr=False, default=None)
 
     @property
     def n_terms(self) -> int:

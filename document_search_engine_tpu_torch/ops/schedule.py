@@ -1,9 +1,9 @@
 """Batch scheduling: bucket queries by packed-block need.
 
-Port of `document_search_engine_tpu/ops/schedule.py` (the planner and
-the single-engine doc-range split planner; the sharded one,
-`split_pieces_sharded`, comes with the sharded engine). Pure numpy,
-unchanged, except that GRANULE_ROWS comes from the port's fused module.
+Port of `document_search_engine_tpu/ops/schedule.py`: the planner and
+the doc-range split planner, for one engine and for the sharded one
+(`plan_batch_sharded`, `split_pieces_sharded`). Pure numpy, unchanged,
+except that GRANULE_ROWS comes from the port's fused module.
 Queries are grouped into pow-2 n_blocks buckets, each bucket runs at its
 own budget, and results scatter back to their original positions.
 """
@@ -134,6 +134,34 @@ def _piece_lens(lens, rows, offs, qidx, cols):
     return np.where(lens[qidx] > 0, hi - start_al, 0)
 
 
+def split_pieces_sharded(
+    lens_sh: np.ndarray,  # (n_shards, nq, S) per-slot lengths
+    rows: np.ndarray,  # (nq, S) GLOBAL term rows
+    offs_sh: np.ndarray,  # (n_shards, T_pad, P+1) per-shard quantile
+    #                       tables in the global row space
+    threshold_rows: int,
+    block: int,
+    p: int,
+):
+    """split_pieces for the sharded engine: the piece STRUCTURE (how
+    many pieces per query, which quantile columns) is shared by every
+    shard, so it is decided from the max-over-shards compacted need,
+    while each shard's piece lengths come from its own quantile table
+    (each shard expands its record ranges on its device; the host needs
+    the lengths only for the max-over-shards block budgets).
+
+    Returns (qidx, pno, cols, lens_p_sh (n_shards, np_, S))."""
+    need = compact_rows_per_query(lens_sh, block).max(axis=0)  # (nq,)
+    qidx, pno, cols = _piece_structure(need, threshold_rows, p)
+    lens_p_sh = np.stack(
+        [
+            _piece_lens(lens_sh[i], rows, offs_sh[i], qidx, cols)
+            for i in range(lens_sh.shape[0])
+        ]
+    )
+    return qidx, pno, cols, lens_p_sh
+
+
 def plan_batch(
     indptr: np.ndarray,
     rows: np.ndarray,
@@ -179,6 +207,49 @@ def plan_batch(
             continue
         nblk = (-(-lens[idx_f] // blk)).sum(axis=1)
         rcq = compact_rows_per_query(lens[idx_f], blk) if compact else None
+        for sub, nb in bucket_queries(nblk, min_blocks=min_blocks):
+            cap = nb * blk // 128
+            if not compact:
+                plans.append((idx_f[sub], nb, blk, cap))
+                continue
+            for sub2, rc in bucket_rows(rcq[sub], cap=cap):
+                plans.append((idx_f[sub][sub2], nb, blk, rc))
+    return plans
+
+
+def plan_batch_sharded(
+    lens_sh: np.ndarray,
+    families=DEFAULT_FAMILIES,
+    min_blocks: int = 4,
+    compact: bool = False,
+):
+    """plan_batch for the sharded engine: the same family logic, with
+    budgets max-over-shards (one plan serves every shard). lens_sh is
+    (n_shards, nq, S) per-slot postings lengths (0 where missing).
+
+    Returns [(query_indices, n_blocks, block_size, r_c)] covering every
+    query exactly once; n_blocks and r_c are the max over shards of that
+    bucket's need (every shard compacts into its own dstrow layout, but
+    the buffer bound is shared)."""
+    n_shards, nq, s = lens_sh.shape
+    totals = lens_sh.sum(axis=2).max(axis=0)  # (nq,)
+    plans = []
+    assigned = np.zeros(nq, bool)
+    for threshold, blk in families:
+        if threshold is None:
+            fam = ~assigned
+        else:
+            fam = (totals <= threshold) & ~assigned
+        assigned |= fam
+        idx_f = np.nonzero(fam)[0]
+        if not len(idx_f):
+            continue
+        nblk = (-(-lens_sh[:, idx_f] // blk)).sum(axis=2).max(axis=0)
+        rcq = (
+            compact_rows_per_query(lens_sh[:, idx_f], blk).max(axis=0)
+            if compact
+            else None
+        )
         for sub, nb in bucket_queries(nblk, min_blocks=min_blocks):
             cap = nb * blk // 128
             if not compact:

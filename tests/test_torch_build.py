@@ -7,8 +7,11 @@ reference's jitted device materialization on XLA:CPU lands 1 ulp off
 the spec on a fraction of a percent of bm25 postings, though its
 exact_div alone is exact there — the mark of a mul+add contraction
 across ops; the tests pin that the port differs from it exactly there
-and nowhere else.) Also: the
-port's exact_div equals numpy's correctly rounded f32 division."""
+and nowhere else.) The port's host build path (build_segment:
+host_pack, build_host_segment, segment_vals, pack_device_segment)
+equals the reference's host build in every host and device field, the
+host posting copies included. Also: the port's exact_div equals numpy's
+correctly rounded f32 division."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,3 +196,46 @@ def test_exact_div_matches_numpy():
     got = port_builder.exact_div(ta, tb).numpy().view(np.int32)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal((ta / tb).numpy().view(np.int32), want)
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+@pytest.mark.parametrize("kind", ["tfidf", "bm25"])
+def test_host_build_matches_reference(kind, materialize):
+    """build_segment, the host path, with this segment's own stats or
+    with merged ones from a second segment; with materialize=False the
+    value plane is +0.0 and the refresh fills it as the device build's
+    refresh does."""
+    docs = synth_corpus(n_docs=120, vocab_size=500, mean_len=30, seed=25)
+    docs.append("")
+    cfg = IndexConfig(scoring=ScoringConfig(kind=kind))
+    pcfg = PortConfig(scoring=PortScoring(kind=kind))
+    a0 = ref_builder.analyze_texts_fast(docs[:70], cfg)
+    a1 = ref_builder.analyze_texts_fast(docs[70:], cfg)
+    for stats_from in ("own", "merged"):
+        stats_r = stats_p = None
+        if stats_from == "merged":
+            hs = [ref_builder.build_host_segment(a0, 0),
+                  ref_builder.build_host_segment(a1, 70)]
+            stats_r = ref_merge_stats(hs)
+            stats_p = port_merge_stats(hs)
+        rh, rd = ref_builder.build_segment(a0, cfg, 0, stats=stats_r,
+                                           materialize=materialize)
+        ph, pd = port_builder.build_segment(a0, pcfg, "cpu", 0,
+                                            stats=stats_p,
+                                            materialize=materialize)
+        for f in ("term_hash", "df", "dl", "alive", "indptr", "row_start",
+                  "post_doc", "post_tf"):
+            np.testing.assert_array_equal(getattr(ph, f), getattr(rh, f), f)
+        for f in DEVICE_FIELDS:
+            want = np.asarray(getattr(rd, f))
+            got = getattr(pd, f).numpy()
+            assert got.dtype == want.dtype, f
+            np.testing.assert_array_equal(_bits(got), _bits(want),
+                                          f"{stats_from} {f}")
+        if not materialize:
+            assert (pd.post_val == 0).all()
+            stats = stats_p or port_merge_stats([ph])
+            got = port_builder.refresh_segment_vals(ph, pd, pcfg, stats)
+            _hh, hd = ref_builder.build_segment(a0, cfg, 0, stats=stats_r)
+            np.testing.assert_array_equal(got.post_val.numpy(),
+                                          np.asarray(hd.post_val))

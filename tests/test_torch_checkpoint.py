@@ -7,7 +7,12 @@ the same corpus both packages write the same files (keys, dtypes,
 shapes, and every array equal but those 1-ulp plane values); the format
 guards; and the plan layouts that ride in meta.json (zero grows on
 replay). Each package's engine is configured with its own package's
-IndexConfig."""
+IndexConfig.
+
+Sharded checkpoints (DistributedSearchEngine.save/load, CPU meshes):
+either package opens the other's on another shard count, both write
+the same files, an elastic reshard from 4 shards to 2 and 8, a
+never-built engine, and each loader refuses the other kind."""
 import json
 import os
 
@@ -113,9 +118,9 @@ def test_load_defaults_to_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kind", KINDS)
 def test_jax_checkpoint_loads_in_port(kind, build, tmp_path):
     """The JAX engine builds (on its device path, or its host path,
-    which also writes host postings that the port ignores), adds and
-    deletes on the CPU, then saves; the port serves its ids and scores
-    from the stored plane bits."""
+    which also writes host postings that the port's SegmentHost keeps),
+    adds and deletes on the CPU, then saves; the port serves its ids and
+    scores from the stored plane bits."""
     docs, queries = _corpus(seed=4, n=120)
     ref = _ref(kind)
     ref.device_build = build == "device"
@@ -134,7 +139,10 @@ def test_jax_checkpoint_loads_in_port(kind, build, tmp_path):
                        ("post_tf", "plane_tf"), ("alive", "dev_alive")):
             np.testing.assert_array_equal(getattr(d, f).numpy(), z[key], f)
     if build == "host":
-        assert "post_doc" in z  # the port's loader leaves them behind
+        # the host build's posting copies: the port's loader keeps them
+        assert "post_doc" in z
+        np.testing.assert_array_equal(eng.segments[-1][0].post_doc,
+                                      z["post_doc"])
     if kind == "bm25" and build == "device":
         # the JAX device build's values that lie 1 ulp off the spec are
         # served as stored: the port's own history differs there
@@ -211,7 +219,7 @@ def test_checkpoint_format_guards(guard, tmp_path):
         match = "format_version"
     else:
         meta["sharded"] = True
-        match = "A13"
+        match = "DistributedSearchEngine.load"
     with open(f"{path}/meta.json", "w") as f:
         json.dump(meta, f)
     with pytest.raises(ValueError, match=match):
@@ -241,3 +249,156 @@ def test_plan_layouts_persist_across_checkpoint(scorer, tmp_path):
         _assert_same(eng2.search(b, k=10), w, scorer)
     assert eng2.plan_cache.grows == 0, eng2.plan_cache.stats()
     assert eng2.plan_cache.hits >= len(batches), eng2.plan_cache.stats()
+
+
+# ------------------------------------------------------ sharded checkpoints
+def _sharded_history(eng, docs):
+    """build, an add into the last shard, deletes in several shards."""
+    eng.build(docs)
+    eng.add_docs(docs[:4])
+    eng.delete_docs([1, 30, len(docs) - 2])
+    return eng
+
+
+def _port_dist(kind, n_shards, device_build=True):
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+
+    eng = DistributedSearchEngine(
+        port_config.IndexConfig(scoring=port_config.ScoringConfig(kind=kind)),
+        mesh=make_mesh(n_shards, device="cpu"),
+    )
+    eng.device_build = device_build
+    return eng
+
+
+def _ref_dist(kind, n_shards, device_build=True):
+    from document_search_engine_tpu.parallel.dist import (
+        DistributedSearchEngine as RefDist,
+    )
+    from document_search_engine_tpu.parallel.mesh import make_mesh
+
+    eng = RefDist(IndexConfig(scoring=ScoringConfig(kind=kind)),
+                  mesh=make_mesh(n_shards))
+    eng.device_build = device_build
+    return eng
+
+
+@pytest.mark.parametrize("build", ["device", "host"])
+def test_sharded_jax_checkpoint_loads_in_port(build, tmp_path):
+    """The JAX sharded engine saves at 4 shards (device-built shards
+    without host postings, host-built ones with them); the port opens it
+    at 2 and 4 shards and serves the JAX engine's results."""
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+
+    docs, queries = _corpus(seed=10, n=90)
+    ref = _sharded_history(_ref_dist("bm25", 4, build == "device"), docs)
+    want = ref.search(queries, k=10)
+    path = str(tmp_path / "jax_sharded")
+    ref.save(path)
+    with np.load(os.path.join(path, "shard_0.npz")) as z:
+        assert ("host_post_doc" in z.files) == (build == "host")
+    for n in (2, 4):
+        eng = DistributedSearchEngine.load(path,
+                                           mesh=make_mesh(n, device="cpu"))
+        assert eng.index.n_shards == n
+        _assert_same(eng.search(queries, k=10), want, f"{build} {n}")
+
+
+@pytest.mark.parametrize("build", ["device", "host"])
+def test_sharded_port_checkpoint_loads_in_jax(build, tmp_path):
+    from document_search_engine_tpu.parallel.dist import (
+        DistributedSearchEngine as RefDist,
+    )
+    from document_search_engine_tpu.parallel.mesh import make_mesh
+
+    docs, queries = _corpus(seed=12, n=90)
+    eng = _sharded_history(_port_dist("tfidf", 4, build == "device"), docs)
+    want = eng.search(queries, k=10)
+    path = str(tmp_path / "port_sharded")
+    eng.save(path)
+    for n in (2, 4):
+        ref = RefDist.load(path, mesh=make_mesh(n))
+        _assert_same(ref.search(queries, k=10), want, f"{build} {n}")
+
+
+def test_both_packages_write_the_same_sharded_files(tmp_path):
+    """Same corpus and history on 4 shards: the same config.json and
+    meta.json, and shard files with the same keys, dtypes and arrays."""
+    docs, _q = _corpus(seed=14, n=90)
+    p_path, r_path = str(tmp_path / "port"), str(tmp_path / "jax")
+    _sharded_history(_port_dist("bm25", 4), docs).save(p_path)
+    _sharded_history(_ref_dist("bm25", 4), docs).save(r_path)
+    assert sorted(os.listdir(p_path)) == sorted(os.listdir(r_path))
+    for name in ("config.json", "meta.json"):
+        with open(os.path.join(p_path, name)) as f, \
+                open(os.path.join(r_path, name)) as g:
+            assert json.load(f) == json.load(g), name
+    for i in range(4):
+        with np.load(os.path.join(p_path, f"shard_{i}.npz")) as z, \
+                np.load(os.path.join(r_path, f"shard_{i}.npz")) as y:
+            assert set(z.files) == set(y.files)
+            for key in z.files:
+                assert z[key].dtype == y[key].dtype, key
+                np.testing.assert_array_equal(z[key], y[key], key)
+
+
+def test_sharded_checkpoint_elastic_reshard(tmp_path):
+    """Saved on 4 shards, reloaded on 2, 4 and 8: the same results."""
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+
+    docs, queries = _corpus(seed=16, n=90)
+    eng = _sharded_history(_port_dist("bm25", 4), docs)
+    want = eng.search(queries, k=10)
+    path = str(tmp_path / "sharded")
+    eng.save(path)
+    for n in (2, 4, 8):
+        re = DistributedSearchEngine.load(path,
+                                          mesh=make_mesh(n, device="cpu"))
+        assert len(re.index.hosts) == n
+        _assert_same(re.search(queries, k=10), want, f"{n} shards")
+
+
+def test_sharded_checkpoint_empty_engine(tmp_path):
+    """A never-built sharded engine saves and reloads on any mesh to an
+    empty engine."""
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+
+    path = str(tmp_path / "empty")
+    _port_dist("bm25", 4).save(path)
+    re = DistributedSearchEngine.load(path, mesh=make_mesh(2, device="cpu"))
+    assert re.index is None
+    ids, sc = re.search(["anything"], k=5)
+    assert (ids == -1).all() and (sc == -1).all()
+
+
+def test_each_loader_refuses_the_other_kind(tmp_path):
+    """SearchEngine.load refuses a sharded checkpoint with the
+    reference's error, and DistributedSearchEngine.load a single one."""
+    from document_search_engine_tpu_torch import (
+        DistributedSearchEngine,
+        make_mesh,
+    )
+
+    docs, _q = _corpus()
+    sharded = str(tmp_path / "sharded")
+    _port_dist("bm25", 2).save(sharded)
+    with pytest.raises(ValueError, match="DistributedSearchEngine.load"):
+        SearchEngine.load(sharded, device="cpu")
+    single = str(tmp_path / "single")
+    eng = _port("bm25")
+    eng.build(docs)
+    eng.save(single)
+    with pytest.raises(ValueError, match="not a sharded checkpoint"):
+        DistributedSearchEngine.load(single, mesh=make_mesh(2, device="cpu"))

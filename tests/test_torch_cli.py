@@ -1,9 +1,11 @@
 """The torch port's CLI and its host copies (CPU): index -> search,
 search --rerank, serve on a stdin stream and eval, at --device cpu, with
-the printed hits equal to the library's on the saved index; the card is
-the default device; what is not ported yet (index --shards, a sharded
-checkpoint, bench) raises NotImplementedError naming its ROADMAP item;
-the corpus loader and the eval metrics."""
+the printed hits equal to the library's on the saved index, for a single engine and for a
+2-shard index (index --shards 2, then search and serve on the sharded
+checkpoint); the card is the default device; what is not ported yet
+(bench) raises NotImplementedError naming its ROADMAP item, while the
+sharded commands, refused until the sharded engine was ported, now
+run; the corpus loader and the eval metrics."""
 import io
 import json
 import re
@@ -111,23 +113,79 @@ def test_cli_runs_on_the_card_by_default(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("what", ["index_shards", "sharded_index", "bench"])
 def test_cli_refuses_what_is_not_ported(what, tmp_path, capsys):
-    if what == "index_shards":
-        argv = ["index", str(_corpus_dir(tmp_path)), "--out",
-                str(tmp_path / "x"), "--shards", "2", "--device", "cpu"]
-        item = "A13"
-    elif what == "sharded_index":
-        idx = _index(tmp_path, capsys)
-        with open(f"{idx}/meta.json") as f:
-            meta = json.load(f)
-        meta["sharded"] = True
-        with open(f"{idx}/meta.json", "w") as f:
-            json.dump(meta, f)
-        argv = ["search", idx, "apples", "--device", "cpu"]
-        item = "A13"
-    else:
-        argv, item = ["bench"], "A6"
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv)
+    """bench is not ported (A6) and raises; index --shards and a sharded
+    checkpoint were refused the same way until the sharded engine was
+    ported (A13), and now run."""
+    if what == "bench":
+        with pytest.raises(NotImplementedError, match="A6"):
+            main(["bench"])
+        return
+    idx = str(tmp_path / "x")
+    assert main(["index", str(_corpus_dir(tmp_path)), "--out", idx,
+                 "--shards", "2", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["docs"] == 4
+    if what == "sharded_index":
+        assert main(["search", idx, "apples", "--device", "cpu"]) == 0
+        assert HIT.match(capsys.readouterr().out.splitlines()[0])
+
+
+def test_cli_sharded_index_search_and_serve(tmp_path, capsys, monkeypatch):
+    """index --shards 2 --device cpu writes a sharded checkpoint; search
+    (plain and --rerank) and serve on it print the hits of
+    DistributedSearchEngine.load on the same index, which equal a single
+    engine's; without --device the sharded commands mean the card."""
+    from document_search_engine_tpu_torch import DistributedSearchEngine
+    from document_search_engine_tpu_torch.parallel.mesh import make_mesh
+
+    idx = str(tmp_path / "sidx")
+    assert main(["index", str(_corpus_dir(tmp_path)), "--out", idx,
+                 "--shards", "2", "--kind", "bm25", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["docs"] == 4 and out["out"] == idx
+    with open(f"{idx}/meta.json") as f:
+        meta = json.load(f)
+    assert meta["sharded"] and meta["n_shards"] == 2
+    with open(f"{idx}/docnames.json") as f:
+        names = json.load(f)
+    eng = DistributedSearchEngine.load(idx, mesh=make_mesh(2, device="cpu"))
+    sb = eng.config.scoring.scale_bits
+    queries = ["apples", "cars trucks", "nothing here"]
+    ids, scores = eng.search(queries, k=3)
+    (tmp_path / "single").mkdir()
+    single = SearchEngine.load(_index(tmp_path / "single", capsys),
+                               device="cpu")
+    s_ids, s_scores = single.search(queries, k=3)
+    np.testing.assert_array_equal(ids, s_ids)
+    np.testing.assert_array_equal(scores, s_scores)
+    for qi, q in enumerate(queries):
+        assert main(["search", idx, q, "-k", "3", "--device", "cpu"]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        got = [HIT.match(ln).groups() for ln in lines]
+        want = [(str(r), names[g], f"{s / (1 << sb):.6f}", str(g))
+                for r, (g, s) in enumerate(zip(ids[qi], scores[qi]), 1)
+                if g >= 0]
+        assert got == want, q
+    assert main(["search", idx, "apples", "-k", "2", "--rerank",
+                 "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    r_ids, _ri, _lex = eng.search_rerank(["apples"], k=2)
+    assert [int(HIT.match(ln).group(4)) for ln in lines] == [
+        g for g in r_ids[0] if g >= 0]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("apples\n\ncars trucks\n"))
+    assert main(["serve", idx, "-k", "3", "--batch", "1",
+                 "--device", "cpu"]) == 0
+    lines = [json.loads(ln)
+             for ln in capsys.readouterr().out.strip().splitlines()]
+    assert len(lines) == 2
+    for qi, line in enumerate(lines):
+        want = [{"doc": int(g), "score": float(s) / (1 << sb)}
+                for g, s in zip(ids[qi], scores[qi]) if g >= 0]
+        assert line["hits"] == want
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["index", str(tmp_path / "corpus"), "--out", idx,
+                  "--shards", "2"], ["search", idx, "apples"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
 
 
 def test_corpus_loader(tmp_path):

@@ -1,6 +1,7 @@
 """The torch port stands alone: it imports, builds, serves and reranks in
-a process where importing jax or the JAX package fails; no module of the
-port, and not chip_smoke.py, imports either; the engine runs on the card
+a process where importing jax or the JAX package fails (the sharded
+engine on a 2-shard CPU mesh too); no module of the port, and not
+chip_smoke.py, imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
 compact), its checkpoints and its CLI serve on the CPU; the kernel
@@ -50,6 +51,16 @@ ora.build(docs)
 o_ids, o_scores = ora.search(["quick fox", "dog", "nothing"], k=3)
 assert (ids == o_ids).all() and (scores == o_scores).all(), (ids, o_ids)
 assert ids[0, 0] >= 0 and ids[2, 0] == -1
+# the sharded engine on a 2-shard CPU mesh, and its sharded rerank
+from document_search_engine_tpu_torch import DistributedSearchEngine, make_mesh
+dist = DistributedSearchEngine(IndexConfig(), mesh=make_mesh(2, device="cpu"))
+dist.build(docs)
+d_ids, d_scores = dist.search(["quick fox", "dog", "nothing"], k=3)
+assert (d_ids == o_ids).all() and (d_scores == o_scores).all(), d_ids
+d_rr = dist.search_rerank(["quick fox", "dog"], k=2, candidates=4)
+for g, w in zip(d_rr, eng.search_rerank(["quick fox", "dog"], k=2,
+                                        candidates=4)):
+    assert (g == w).all(), (g, w)
 r_ids, r_sc, r_lex = eng.search_rerank(["quick fox", "dog"], k=2,
                                        candidates=4)
 assert r_ids.shape == (2, 2) and set(r_ids[1]) <= {1, 2, 3}, r_ids

@@ -442,3 +442,31 @@ def test_compact_host_work_is_vectorized_at_scale(monkeypatch):
     assert a.n_docs == 200_000 and int(got_dead.sum()) == 60_000
     want_nnz = 8 * (200_000 - 60_000)  # 8 terms per synthetic doc
     assert len(a.hashes) == want_nnz and int(a.doc_ptr[-1]) == want_nnz
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_host_build_path_equals_device_build(kind):
+    """SearchEngine.device_build = False (the host build path) serves
+    the device build's results, with the same value-plane bits, through
+    a second segment, a delete and a compact, in every scorer mode."""
+    docs = synth_corpus(n_docs=80, vocab_size=300, mean_len=25, seed=19)
+    queries = synth_queries(docs, n_queries=8, seed=20)
+    dev, host = _port(kind), _port(kind)
+    host.device_build = False
+    for step, act in (("build", lambda e: e.build(docs[:60])),
+                      ("add", lambda e: e.add_docs(docs[60:])),
+                      ("delete", lambda e: e.delete_docs([2, 33, 71])),
+                      ("compact", lambda e: e.compact())):
+        for eng in (dev, host):
+            act(eng)
+        assert host.segments[0][0].post_doc is not None
+        assert dev.segments[0][0].post_doc is None
+        for (_h, d), (_g, o) in zip(dev.segments, host.segments):
+            n = d.post_val.shape[0]
+            assert torch.equal(d.post_val[: o.post_val.shape[0]],
+                               o.post_val[:n]), step
+        for scorer in (None, "fused", "xla_rank", "fused_dv"):
+            dev.scorer = host.scorer = scorer
+            _assert_same(host.search(queries, k=10),
+                         dev.search(queries, k=10), f"{step} {scorer}")
+        dev.scorer = host.scorer = None
