@@ -2,8 +2,9 @@
 """Smoke test of the torch port on one NVIDIA GPU: build -> search_stream,
 the hybrid rerank path search_rerank, the xla_rank, fused_dv and
 doc-range split serving paths, the index lifecycle (streaming build,
-delete, compact, save/load, the CLI), and the sharded engine
-(DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card).
+delete, compact, save/load, the CLI), the sharded engine
+(DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card),
+and the reference scorers, the entry points and the trace.
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -137,9 +138,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    count: build seconds and peak bytes above the start, resident bytes,
    serving q/s (median of 3 passes), the host's dispatch and collect ms
    a batch; the time of each lifecycle step and the checkpoint's bytes.
+9. The reference scorers and the entry points (phase_reference), on
+   phase 4's corpus built again (phases 7-8 changed phase 4's engine)
+   and its batches: every query through the packed step, pack_ds at
+   block 512 then the rank-only kernel (rank_candidates_kernel; the
+   reference's search_packed_ds with use_rank_pallas), queries grouped
+   by pow-2 n_blocks (blocks_per_query, block_plan) and cut into chunks
+   of 32M packed pairs: all 65,536 results must equal phase 4's, the
+   kernel must have launched, and a seeded sample of >= 1,024 queries
+   covering every group must equal the plain search_packed_ds; the
+   kernel, its plain version and pack_ds timed (median of 5 warm runs)
+   on batch 0's group with the most packed pairs. The dense reference
+   (score_exact, then topk_ranked and topk_ranked_sort) on 256 sampled
+   queries in chunks of 64 must equal phase 4's. SearchEngine on the
+   card (default scorer and xla_rank) must equal the vectorized oracle
+   on an 18,000-doc corpus, bm25 and tfidf, k 10 and 100, before and
+   after a delete + add. entry() on the card must launch the rank-only
+   kernel and equal the same step on CPU tensors; dryrun_multichip(8)
+   must pass (its rankings equal the oracle's). search must record
+   exactly the phases search.analyze and search.score, and a trace
+   (utils/prof.py trace, traces/chip_smoke_trace.json) of one
+   search_stream pass must hold the fused kernel's events. Reported:
+   the groups, the step's q/s, the timed group's ms and bound, and the
+   card's busy share of the traced window (the union of its kernels
+   over the span of all events), with the kernels' time by name, the
+   union of the host's torch operators and the first kernel's start.
 
 stdout ends with the lifecycle path's JSON line, the sharded path's,
-the kernels' JSON line, the card's name and power limit, and {"ok":
+the reference path's, the kernels' JSON line (the rank-only kernel's
+launches: the xla_rank path's and phase 9's packed step's), the card's
+name and power limit, and {"ok":
 true, "device": {...}} as the last line. Progress goes
 to stderr. chip_ab.py runs this script in several trees in turn, for a
 comparison on one card in one go.
@@ -203,6 +231,14 @@ CLI_DOCS, CLI_QUERIES = 2_000, 16
 SHARD_COUNTS, SHARDED_AT, RESHARD_TO = (1, 2, 4, 8), 4, 2
 N_ADD, SHARDED_PASSES = 10_000, 3
 PLANES = ("post_doc", "post_val", "post_tf", "indptr", "row_start")
+# phase 9: the packed step's block (the reference's search_packed_ds
+# default, entry.py's) and its chunks of packed pairs (and the plain
+# version's); the dense reference's sample and chunk (64 x 1M int32 =
+# 256 MB of scores); the parity corpus (20 Newsgroups' ~18k docs,
+# BASELINE.json:8) and its queries
+PACK_BLOCK, PACK_CHUNK_ELEMS, PLAIN_CHUNK_ELEMS = 512, 32 << 20, 16 << 20
+DENSE_SAMPLE, DENSE_CHUNK = 256, 64
+PARITY_DOCS, PARITY_QUERIES = 18_000, 64
 
 
 def log(msg: str) -> None:
@@ -2709,6 +2745,436 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
     return res
 
 
+# ------------------------------------------------------------ phase 9
+def pack_inputs(eng, batch):
+    """One batch's packed-step inputs on a one-segment engine: the active
+    slots' CSR rows and coefficients (0 for a term the index lacks), and
+    the found mask (frontend.analyze, segment_rows; the engine trims the
+    slots the same way)."""
+    from document_search_engine_tpu_torch.engine.engine import (
+        slice_active_slots,
+    )
+    from document_search_engine_tpu_torch.engine.query import segment_rows
+
+    host = eng.segments[0][0]
+    slot_h, coeff = eng.frontend.analyze(batch, eng.stats)
+    slot_h, coeff = slice_active_slots(slot_h, coeff)
+    rows, found = segment_rows(host.term_hash, slot_h)
+    return rows, np.where(found, coeff, np.float32(0.0)), found
+
+
+def pack_groups(eng, rows, found):
+    """The batch's queries grouped by pow-2 n_blocks budget at PACK_BLOCK
+    (schedule.bucket_queries over blocks_per_query), each group's budget
+    from block_plan over its queries, and cut into chunks of at most
+    PACK_CHUNK_ELEMS packed pairs. Returns [(indices, n_blocks,
+    [chunk indices])]."""
+    from document_search_engine_tpu_torch.ops.schedule import (
+        block_plan,
+        blocks_per_query,
+        bucket_queries,
+    )
+
+    indptr = eng.segments[0][0].indptr
+    nblk = blocks_per_query(indptr, rows, found, PACK_BLOCK)
+    groups = []
+    for idx, budget in bucket_queries(nblk, min_blocks=1):
+        nb = block_plan(indptr, rows[idx], found[idx], block=PACK_BLOCK)
+        if nb != budget:
+            raise AssertionError(f"block_plan {nb} != bucket {budget}")
+        step = max(1, PACK_CHUNK_ELEMS // (nb * PACK_BLOCK))
+        groups.append((idx, nb, [idx[lo : lo + step]
+                                  for lo in range(0, len(idx), step)]))
+    return groups
+
+
+def pack_chunk(eng, rows_t, coeff_t, n_blocks):
+    """pack_ds of one chunk on the engine's planes: (d_key, ci)."""
+    from document_search_engine_tpu_torch.ops.packed import pack_ds
+
+    host, seg = eng.segments[0]
+    return pack_ds(seg.post_doc, seg.post_val, seg.indptr, seg.row_start,
+                   rows_t, coeff_t, SCALE, CLIP, n_blocks=n_blocks,
+                   n_docs=host.n_docs, block=PACK_BLOCK)
+
+
+def union_ms(intervals):
+    """Length of the union of [start, end) intervals (trace µs), in ms."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def phase_packed(eng, batches, base_outs, diff, res, sample=1024, seed=9):
+    """Step 1 of phase 9: every query through the card's packed step,
+    pack_ds then the rank-only kernel (ops/rank.py
+    rank_candidates_kernel), at block PACK_BLOCK in pow-2 n_blocks
+    groups; all results == phase 4's, a seeded sample covering every
+    group == the plain search_packed_ds, and the kernel timed on the
+    batch's group with the most packed pairs."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.packed import (
+        rank_candidates,
+        search_packed_ds,
+    )
+    from document_search_engine_tpu_torch.ops.rank import (
+        rank_candidates_kernel,
+        rank_kernel,
+    )
+
+    host, seg = eng.segments[0]
+    dev, base, n_docs = eng.device, host.doc_base, host.n_docs
+    inputs = [pack_inputs(eng, b) for b in batches]
+    groups = [pack_groups(eng, rows, found) for rows, _c, found in inputs]
+    uploads = [(torch.from_numpy(rows).to(dev), torch.from_numpy(c).to(dev))
+               for rows, c, _f in inputs]
+
+    def step(rows_t, coeff_t, nb):
+        d_key, ci = pack_chunk(eng, rows_t, coeff_t, nb)
+        return rank_candidates_kernel(d_key, ci, base, block=PACK_BLOCK,
+                                      s=rows_t.shape[1], k=K, n_docs=n_docs)
+
+    # the counted run
+    torch.cuda.synchronize()
+    rank_kernel.launches = 0
+    t0 = time.perf_counter()
+    outs = []
+    for (rows_t, coeff_t), grp in zip(uploads, groups):
+        nq = rows_t.shape[0]
+        vals = torch.empty((nq, K), dtype=torch.int32, device=dev)
+        gids = torch.empty((nq, K), dtype=torch.int32, device=dev)
+        for _idx, nb, chunks in grp:
+            for ch in chunks:
+                ch_t = torch.from_numpy(ch).to(dev)
+                vals[ch_t], gids[ch_t] = step(rows_t[ch_t], coeff_t[ch_t], nb)
+        outs.append((gids.cpu().numpy(), vals.cpu().numpy()))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res["launches"] = rank_kernel.launches
+    res["step_qps"] = NQ * len(batches) / dt
+    if res["launches"] <= 0:
+        raise AssertionError("the packed step launched no rank_only kernel")
+    assert_outs_equal(outs, base_outs, "packed step vs phase 4")
+    totals = {}
+    for grp in groups:
+        for idx, nb, chunks in grp:
+            t = totals.setdefault(nb, [0, 0])
+            t[0] += len(idx)
+            t[1] += len(chunks)
+    res["groups"] = [{"n_blocks": nb, "c": nb * PACK_BLOCK, "queries": q,
+                      "chunks": c} for nb, (q, c) in sorted(totals.items())]
+    log(f"packed step (pack_ds + rank_only, block {PACK_BLOCK}): "
+        f"{NQ * len(batches)} queries in {dt:.3f}s = {res['step_qps']:.1f} "
+        f"q/s, {res['launches']} launches, groups {res['groups']}; all "
+        "ids and scores == phase 4's")
+
+    # a seeded sample of batch 0 covering every group vs the plain scorer
+    rows_t, coeff_t = uploads[0]
+    pick, n_live = sample_cells(np.random.default_rng(seed),
+                                [(idx, None) for idx, _nb, _c in groups[0]],
+                                NQ, min(sample, NQ))
+    got_v, got_g = (torch.from_numpy(outs[0][1]).to(dev),
+                    torch.from_numpy(outs[0][0]).to(dev))
+    for idx, nb, _chunks in groups[0]:
+        sel = np.intersect1d(idx, pick)
+        step_q = max(1, PLAIN_CHUNK_ELEMS // (nb * PACK_BLOCK))
+        for lo in range(0, len(sel), step_q):
+            sel_t = torch.from_numpy(sel[lo : lo + step_q]).to(dev)
+            v, g = search_packed_ds(
+                seg.post_doc, seg.post_val, seg.indptr, seg.row_start,
+                rows_t[sel_t], coeff_t[sel_t], SCALE, CLIP, base,
+                n_blocks=nb, k=K, n_docs=n_docs, block=PACK_BLOCK)
+            diff.check(got_v[sel_t], v, f"packed step vals, n_blocks {nb}")
+            diff.check(got_g[sel_t], g, f"packed step gids, n_blocks {nb}")
+    res["sampled_compared"] = len(pick)
+    log(f"packed step: {len(pick)} sampled queries over {n_live} groups "
+        "== the plain search_packed_ds")
+
+    # the kernel on the group with the most packed pairs, vs plain
+    idx, nb, chunks = max(groups[0], key=lambda g: len(g[0]) * g[1])
+    s = rows_t.shape[1]
+    chunk_t = [torch.from_numpy(ch).to(dev) for ch in chunks]
+
+    def pack_all():
+        return [pack_chunk(eng, rows_t[c], coeff_t[c], nb) for c in chunk_t]
+
+    packed, pack_ms, _reps = timed(pack_all)
+    got, ms, reps = timed(lambda: [
+        rank_candidates_kernel(d, c, base, block=PACK_BLOCK, s=s, k=K,
+                               n_docs=n_docs) for d, c in packed])
+    want, plain_ms, plain_reps = timed(lambda: [
+        rank_candidates(d, c, base, s, K, n_docs) for d, c in packed])
+    for (gv, gg), (wv, wg) in zip(got, want):
+        diff.check(gv, wv, "packed step timing vals")
+        diff.check(gg, wg, "packed step timing gids")
+    bound_ms, bound_by, cand = rank_bound([(d, c, None) for d, c in packed],
+                                          K)
+    res["largest_group"] = {
+        "n_blocks": nb, "c": nb * PACK_BLOCK, "queries": len(idx),
+        "kernel_ms": ms, "kernel_ms_reps": reps, "plain_ms": plain_ms,
+        "plain_ms_reps": plain_reps, "pack_ms": pack_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "packed_pairs": cand,
+    }
+    log(f"packed step, batch 0's largest group ({len(idx)} queries at "
+        f"n_blocks {nb}, C {nb * PACK_BLOCK}), median of {TIMED_REPS} warm "
+        f"runs: rank_only {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms; pack_ds {pack_ms:.3f} ms; bit-identical")
+
+
+def phase_dense(eng, batches, base_outs, res, seed=10):
+    """Step 2 of phase 9: the dense reference (score_exact, then
+    topk_ranked and topk_ranked_sort) on a seeded sample of phase 4's
+    queries, in chunks of DENSE_CHUNK; each == phase 4's results."""
+    import torch
+
+    from document_search_engine_tpu_torch.engine.query import segment_rows
+    from document_search_engine_tpu_torch.ops.exact import (
+        row_cap,
+        score_exact,
+    )
+    from document_search_engine_tpu_torch.ops.topk import (
+        topk_ranked,
+        topk_ranked_sort,
+    )
+
+    host, seg = eng.segments[0]
+    dev = eng.device
+    # the CSR in indptr-contiguous order, read out of the aligned planes
+    ip = seg.indptr.long()
+    lens = ip[1:] - ip[:-1]
+    nnz = int(ip[-1])
+    row_of = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=dev), lens)
+    pos = (seg.row_start.long()[row_of]
+           + torch.arange(nnz, device=dev) - ip[row_of])
+    post_doc = seg.post_doc.reshape(-1)[pos]
+    post_val = seg.post_val.reshape(-1)[pos].view(torch.float32)
+    del row_of, pos
+    n_pad = seg.n_docs_pad
+    doc_ids = torch.arange(n_pad, dtype=torch.int32, device=dev) + (
+        host.doc_base)
+    pick = np.sort(np.random.default_rng(seed).choice(
+        NQ * len(batches), size=DENSE_SAMPLE, replace=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, DENSE_SAMPLE, DENSE_CHUNK):
+        sel = pick[lo : lo + DENSE_CHUNK]
+        slot_h, coeff = eng.frontend.analyze(
+            [batches[i // NQ][i % NQ] for i in sel], eng.stats)
+        rows, found = segment_rows(host.term_hash, slot_h)
+        coeff = np.where(found, coeff, np.float32(0.0))
+        scores = score_exact(
+            seg.indptr, post_doc, post_val, torch.from_numpy(rows).to(dev),
+            torch.from_numpy(coeff).to(dev), SCALE, CLIP,
+            cap=row_cap(host.indptr, rows[found]), n_docs_pad=n_pad)
+        want_ids = np.stack([base_outs[i // NQ][0][i % NQ] for i in sel])
+        want_sc = np.stack([base_outs[i // NQ][1][i % NQ] for i in sel])
+        for fn in (topk_ranked, topk_ranked_sort):
+            v, g = fn(scores, seg.alive, doc_ids, k=K)
+            np.testing.assert_array_equal(
+                g.cpu().numpy(), want_ids, f"dense {fn.__name__} ids")
+            np.testing.assert_array_equal(
+                v.cpu().numpy(), want_sc, f"dense {fn.__name__} scores")
+    torch.cuda.synchronize()
+    res["dense_sampled"] = DENSE_SAMPLE
+    res["dense_s"] = time.perf_counter() - t0
+    log(f"dense reference (score_exact + topk_ranked, topk_ranked_sort): "
+        f"{DENSE_SAMPLE} sampled queries in chunks of {DENSE_CHUNK}, "
+        f"{res['dense_s']:.2f}s; == phase 4's")
+
+
+def phase_parity_scale(device, res, seed=8):
+    """Step 3 of phase 9: SearchEngine on the card against the vectorized
+    oracle at 20 Newsgroups' scale (PARITY_DOCS, BASELINE.json:8), bm25
+    and tfidf, default scorer and xla_rank, k 10 and 100; again after
+    one delete_docs + add_docs round. Ids and scores equal."""
+    from document_search_engine_tpu_torch import (
+        IndexConfig,
+        ScoringConfig,
+        SearchEngine,
+    )
+    from document_search_engine_tpu_torch.corpus.synth import (
+        synth_corpus,
+        synth_queries,
+    )
+    from document_search_engine_tpu_torch.oracle import VectorOracleEngine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    docs = synth_corpus(n_docs=PARITY_DOCS, vocab_size=12_000, mean_len=60,
+                        seed=seed)
+    added = synth_corpus(n_docs=PARITY_DOCS // 20, vocab_size=12_000,
+                         mean_len=60, seed=seed + 1)
+    dead = rng.choice(PARITY_DOCS, size=PARITY_DOCS // 20, replace=False)
+    queries = synth_queries(docs, n_queries=PARITY_QUERIES,
+                            terms_per_query=5, seed=seed + 2)
+    queries += ["", "zzznotaword", docs[0].split()[0]]
+    n = 0
+    for kind in ("bm25", "tfidf"):
+        cfg = IndexConfig(scoring=ScoringConfig(kind=kind))
+        ora = VectorOracleEngine(cfg)
+        ora.build(docs)
+        engines = []
+        for scorer in (None, "xla_rank"):
+            e = SearchEngine(cfg, device=device)
+            e.scorer = scorer
+            e.build(docs)
+            engines.append(e)
+        for when in ("built", "after delete + add"):
+            for k in (10, 100):
+                want = ora.search(queries, k=k)
+                for e in engines:
+                    got = e.search(queries, k=k)
+                    what = f"{kind} {e.scorer_mode} k={k} {when}"
+                    np.testing.assert_array_equal(got[0], want[0], what)
+                    np.testing.assert_array_equal(got[1], want[1], what)
+                    n += 1
+            if when == "built":
+                for e in (ora, *engines):
+                    e.delete_docs(dead.tolist())
+                    e.add_docs(added)
+    res["parity_docs"] = PARITY_DOCS
+    res["parity_comparisons"] = n
+    res["parity_s"] = time.perf_counter() - t0
+    log(f"parity at scale: {PARITY_DOCS} docs, bm25 and tfidf, fused and "
+        f"xla_rank, k 10 and 100, built and after a delete + add: {n} "
+        f"comparisons == the vectorized oracle in {res['parity_s']:.1f}s")
+
+
+def phase_entry(res):
+    """Step 4 of phase 9: entry() on the card (its packed step launches
+    the rank-only kernel) == the same step on CPU tensors, and
+    dryrun_multichip(8) with every shard on the card."""
+    import contextlib
+
+    import torch
+
+    from document_search_engine_tpu_torch.entry import (
+        dryrun_multichip,
+        entry,
+    )
+    from document_search_engine_tpu_torch.ops.rank import rank_kernel
+
+    fn, args = entry()
+    rank_kernel.launches = 0
+    vals, gids = fn(*args)
+    torch.cuda.synchronize()
+    res["entry_launches"] = rank_kernel.launches
+    if res["entry_launches"] <= 0:
+        raise AssertionError("entry()'s step launched no rank_only kernel")
+    fn_c, args_c = entry(device="cpu")
+    want = fn_c(*args_c)
+    for g, w, name in zip((vals, gids), want, ("vals", "gids")):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      f"entry {name}: card vs cpu")
+    if not (vals[:, 0] > 0).all():
+        raise AssertionError(f"entry: a query found nothing: {vals}")
+    with contextlib.redirect_stdout(sys.stderr):
+        dryrun_multichip(SHARD_COUNTS[-1])
+    log(f"entry: {tuple(vals.shape)} == the CPU step, "
+        f"{res['entry_launches']} rank_only launch(es); "
+        f"dryrun_multichip({SHARD_COUNTS[-1]}) == the oracle")
+
+
+def phase_prof(eng, batches, res):
+    """Step 5 of phase 9: the engine's phase timers over one search, and
+    one search_stream pass of the batches under prof.trace: the trace
+    must hold the fused kernel's events; the card's busy share of the
+    traced window (the union of its kernels over the span of all events)
+    is reported."""
+    import torch
+
+    from document_search_engine_tpu_torch.utils import prof
+
+    prof.reset()
+    eng.search(batches[0], k=K)
+    phases = json.loads(prof.metrics_json())["phases_s"]
+    if set(phases) != {"search.analyze", "search.score"}:
+        raise AssertionError(f"search recorded phases {sorted(phases)}")
+    res["search_phases_s"] = phases
+    out_dir = os.path.join(REPO, "traces")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "chip_smoke_trace.json")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof.trace(path):
+        serve_all(eng, batches)
+    res["traced_s"] = time.perf_counter() - t0
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    fused = [e for e in kernels if "fused_search_kernel" in e["name"]]
+    if not fused:
+        raise AssertionError(f"the trace holds no fused_search kernel "
+                             f"({len(kernels)} kernel events)")
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy = union_ms([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in kernels])
+    # the host's torch operators (enqueue) on any thread, as a union
+    host_ops = union_ms([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                         for e in events if e.get("cat") == "cpu_op"])
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    res["trace"] = {
+        "bytes": os.path.getsize(path), "events": len(events),
+        "kernel_events": len(kernels), "fused_events": len(fused),
+        "window_ms": (end - start) / 1e3, "kernel_union_ms": busy,
+        "busy_share": busy / ((end - start) / 1e3),
+        "fused_ms": sum(e["dur"] for e in fused) / 1e3,
+        "host_ops_union_ms": host_ops,
+        "first_kernel_ms": (min(float(e["ts"]) for e in kernels)
+                            - start) / 1e3,
+        "top_kernels_ms": [[name[:80], ms] for name, ms in top],
+    }
+    t = res["trace"]
+    log(f"trace of one search_stream pass ({res['traced_s']:.3f}s on the "
+        f"host clock, {t['bytes']} B): {t['kernel_events']} kernels, "
+        f"{t['fused_events']} fused_search, busy {t['kernel_union_ms']:.2f} "
+        f"of {t['window_ms']:.2f} ms = {100 * t['busy_share']:.1f}% of the "
+        f"window; torch operators on the host {t['host_ops_union_ms']:.2f} "
+        f"ms; first kernel at {t['first_kernel_ms']:.2f} ms")
+
+
+def phase_reference(device, texts, batches, base_outs, diffs):
+    """Phase 9: the reference scorers and the entry points on the card.
+    Phases 7 and 8 changed phase 4's engine, so its corpus is built
+    again (the same build). Returns the results."""
+    import torch
+
+    from document_search_engine_tpu_torch import (
+        IndexConfig,
+        ScoringConfig,
+        SearchEngine,
+    )
+
+    res = {"block": PACK_BLOCK}
+    eng = SearchEngine(IndexConfig(scoring=ScoringConfig(kind="bm25")),
+                       device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.build(texts)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    log(f"phase 9: phase 4's corpus built again in {res['build_s']:.1f}s")
+    phase_packed(eng, batches, base_outs, diffs["rank_only"], res)
+    phase_dense(eng, batches, base_outs, res)
+    phase_parity_scale(device, res)
+    phase_entry(res)
+    phase_prof(eng, batches, res)
+    return res
+
+
 def thread_sweep(threads=(256, 1024)):
     """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
     each bucket of one main-path batch (fused at k = 10 and 64, the dv
@@ -2822,8 +3288,10 @@ def main() -> int:
     lc = phase_lifecycle(eng, batches, outs, texts)
     print("lifecycle path: " + json.dumps(lc), flush=True)
     sh = phase_sharded(eng, batches, outs, rerank_outs, texts)
-    del texts
     print("sharded path: " + json.dumps(sh), flush=True)
+    ref = phase_reference(device, texts, batches, outs, diffs)
+    del texts
+    print("reference path: " + json.dumps(ref), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],
@@ -2838,8 +3306,12 @@ def main() -> int:
     ]
     for _scorer, _split, name in PATHS:
         b = pp[name]["batch"]
+        # the rank-only kernel's count: the xla_rank path's launches and
+        # phase 9's packed step's
+        launches = pp[name]["launches"] + (
+            ref["launches"] if name == "rank_only" else 0)
         kernels.append(kernel_entry(
-            name, pp[name]["launches"], diffs[name], b["kernel_ms"],
+            name, launches, diffs[name], b["kernel_ms"],
             b["plain_ms"], b["bound_ms"], b["bound_by"], None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -10,7 +10,10 @@ engine and its sharded one (`DistributedSearchEngine` over a `docs` mesh
 of torch devices, `make_mesh`): build and streaming build,
 add/delete/compact, save/load (v2 checkpoints that either package
 opens), search, rerank, and the CLI
-(`python -m document_search_engine_tpu_torch`). The fused search step and the
+(`python -m document_search_engine_tpu_torch`); the reference scorers
+(ops/exact.py, ops/topk.py, ops/packed.py), the vectorized oracle, the
+phase timers and trace (utils/prof.py) and the entry points
+(`python -m document_search_engine_tpu_torch.entry`). The fused search step and the
 rerank dots are hand-written CUDA kernels (csrc/), built with nvcc at
 first use. `SearchEngine()` and `DistributedSearchEngine()` run on the
 card unless given `device="cpu"` (`make_mesh(n, device="cpu")`).

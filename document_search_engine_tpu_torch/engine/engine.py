@@ -33,6 +33,10 @@ Every mutation (add, delete, compact, streaming build, load) re-merges
 the global stats and drops every per-segment device cache (row tables,
 embeddings, dv planes, doc-quantile tables), so no cache keeps a
 replaced plane resident.
+
+Phase timers (utils/prof.py), where the reference records them:
+`build.analyze` around add_docs' text analysis, `search.analyze` and
+`search.score` around search's analysis and its dispatch and collect.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from ..ops.schedule import (
     split_pieces,
 )
 from ..oracle import spec
+from ..utils import prof
 from .query import QueryFrontend, segment_rows
 
 F32 = np.float32
@@ -341,7 +346,9 @@ class SearchEngine:
         if not texts:
             return []
         doc_base = self.n_docs_total
-        self._append_segment(texts)
+        with prof.phase("build.analyze"):
+            analyzed = builder.analyze_texts_fast(texts, self.config)
+        self._append_segment(analyzed)
         self._refresh_stats_and_vals()
         self._maybe_auto_compact()
         return list(range(doc_base, self.n_docs_total))
@@ -356,14 +363,15 @@ class SearchEngine:
         for batch in batches:
             batch = list(batch)
             if batch:
-                self._append_segment(batch)
+                self._append_segment(
+                    builder.analyze_texts_fast(batch, self.config)
+                )
         self._refresh_stats_and_vals()
         self._maybe_auto_compact()
 
-    def _append_segment(self, texts) -> None:
-        """Analyze and build one segment, with its doc ids following the
-        engine's last."""
-        analyzed = builder.analyze_texts_fast(texts, self.config)
+    def _append_segment(self, analyzed) -> None:
+        """Build one segment from analyzed docs, with its doc ids
+        following the engine's last."""
         host, dev_seg = self._build_segment(analyzed, self.n_docs_total)
         self.segments.append([host, dev_seg])
         self.n_docs_total += host.n_docs
@@ -610,10 +618,13 @@ class SearchEngine:
                 np.full((nq, k), -1, np.int64),
                 np.full((nq, k), -1, np.int64),
             )
-        slot_h, coeff, rows_g, found_g = self.frontend.analyze_rows(
-            queries, self.stats
-        )
-        return self._collect(self._dispatch(slot_h, coeff, k, rows_g, found_g))
+        with prof.phase("search.analyze"):
+            slot_h, coeff, rows_g, found_g = self.frontend.analyze_rows(
+                queries, self.stats
+            )
+        with prof.phase("search.score"):
+            fut = self._dispatch(slot_h, coeff, k, rows_g, found_g)
+            return self._collect(fut)
 
     def search_stream(self, query_batches, k: int = 10, depth: int = 2):
         """Pipelined serving loop: yields (ids, scores) per input batch,

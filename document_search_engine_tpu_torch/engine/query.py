@@ -42,6 +42,28 @@ class QueryFrontend:
         a = spec.query_coeffs(kind, qtf, idf_s)
         return hashes, a
 
+    def analyze_slow(self, queries, stats: GlobalStats):
+        """Per-query reference frontend (the spec as written): the same
+        (slot_hashes, coeff) as analyze, one query at a time."""
+        s = self.config.max_query_terms
+        nq = len(queries)
+        out_h = np.zeros((nq, s), dtype=np.uint64)
+        out_a = np.zeros((nq, s), dtype=F32)
+        for i, q in enumerate(queries):
+            r = self._analyze_one(q, stats, s)
+            if r is None:
+                continue
+            hashes, a = r
+            out_h[i, : len(hashes)] = hashes
+            out_a[i, : len(hashes)] = a
+        return out_h, out_a
+
+    def analyze(self, queries, stats: GlobalStats):
+        """(slot_hashes (nq,S) uint64, coeff (nq,S) f32): analyze_rows
+        without its rows and found. Empty slots have hash 0 and coeff 0."""
+        out_h, out_a, _rows, _found = self.analyze_rows(queries, stats)
+        return out_h, out_a
+
     def analyze_rows(self, queries, stats: GlobalStats):
         """(slot_hashes (nq,S) uint64, coeff (nq,S) f32, rows (nq,S)
         int32, found (nq,S) bool). Empty slots have hash 0 and coeff 0;

@@ -2,7 +2,8 @@
 
 Port of `document_search_engine_tpu/ops/schedule.py`: the planner and
 the doc-range split planner, for one engine and for the sharded one
-(`plan_batch_sharded`, `split_pieces_sharded`). Pure numpy, unchanged,
+(`plan_batch_sharded`, `split_pieces_sharded`), and the packed step's
+n_blocks budget (`block_plan`, `blocks_per_query`). Pure numpy, unchanged,
 except that GRANULE_ROWS comes from the port's fused module.
 Queries are grouped into pow-2 n_blocks buckets, each bucket runs at its
 own budget, and results scatter back to their original positions.
@@ -22,6 +23,32 @@ DEFAULT_FAMILIES = ((8192, 256), (None, 1024))
 # the largest legal block). The kernel loads only the real rows of each
 # block, so a large block costs no extra reads on this card.
 FUSED_FAMILIES = ((None, 4096),)
+
+
+def block_plan(
+    indptr: np.ndarray,
+    rows: np.ndarray,
+    found: np.ndarray,
+    block: int = 512,
+) -> int:
+    """Static n_blocks for a batch: max per-query sum of ceil(len/block),
+    pow-2 bucketed (the n_blocks budget of packed.pack_ds)."""
+    if len(indptr) < 2 or rows.size == 0:
+        return 1
+    lens = (indptr[rows + 1] - indptr[rows]) * found
+    nblk = -(-lens // block)  # ceil
+    m = int(nblk.sum(axis=1).max())
+    return max(1, 1 << int(np.ceil(np.log2(max(m, 1)))))
+
+
+def blocks_per_query(
+    indptr: np.ndarray, rows: np.ndarray, found: np.ndarray, block: int
+) -> np.ndarray:
+    """(nq,) int: sum over slots of ceil(len/block)."""
+    if len(indptr) < 2 or rows.size == 0:
+        return np.zeros(rows.shape[0] if rows.ndim else 0, np.int64)
+    lens = (indptr[rows + 1] - indptr[rows]) * found
+    return (-(-lens // block)).sum(axis=1)
 
 
 def compact_rows_per_query(lens: np.ndarray, block: int) -> np.ndarray:

@@ -1,4 +1,5 @@
 from . import spec
 from .oracle import OracleEngine
+from .vector import VectorOracleEngine
 
-__all__ = ["spec", "OracleEngine"]
+__all__ = ["spec", "OracleEngine", "VectorOracleEngine"]

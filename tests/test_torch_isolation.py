@@ -4,7 +4,8 @@ engine on a 2-shard CPU mesh too); no module of the port, and not
 chip_smoke.py, imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
-compact), its checkpoints and its CLI serve on the CPU; the kernel
+compact), its checkpoints, its CLI, its entry points (entry.py) and its
+phase timers run on the CPU; the kernel
 wrapper takes its plain version for CPU tensors without counting a
 launch; and each host module the port keeps its own copy of behaves as
 its original in the JAX package on the same inputs."""
@@ -92,6 +93,18 @@ with tempfile.TemporaryDirectory() as d:
     with contextlib.redirect_stdout(out):
         assert main(["search", d, "quick fox", "--device", "cpu"]) == 0
     assert f"(doc {want[0][0, 0]})" in out.getvalue(), out.getvalue()
+# the entry points and the phase timers
+import json
+from document_search_engine_tpu_torch.entry import dryrun_multichip, entry
+from document_search_engine_tpu_torch.utils import prof
+fn, args = entry(device="cpu")
+vals, gids = fn(*args)
+assert tuple(vals.shape) == (8, 10) and (vals[:, 0] > 0).all(), vals
+dryrun_multichip(2, device="cpu")
+prof.reset()
+eng.search(["quick fox"], k=3)
+assert set(json.loads(prof.metrics_json())["phases_s"]) == {
+    "search.analyze", "search.score"}
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
@@ -506,10 +519,58 @@ def _check_delete_from_hosts():
             np.testing.assert_array_equal(p2.df, ph.df)
 
 
+def _check_vector_oracle():
+    from document_search_engine_tpu.config import IndexConfig as RefC
+    from document_search_engine_tpu.config import ScoringConfig as RefS
+    from document_search_engine_tpu.oracle import (
+        VectorOracleEngine as RefVector,
+    )
+    from document_search_engine_tpu_torch.config import (
+        IndexConfig,
+        ScoringConfig,
+    )
+    from document_search_engine_tpu_torch.oracle import VectorOracleEngine
+
+    texts = _texts()
+    docs, queries = texts[:60], texts[60:]
+    for kind in ("tfidf", "bm25"):
+        port = VectorOracleEngine(IndexConfig(scoring=ScoringConfig(
+            kind=kind)))
+        ref = RefVector(RefC(scoring=RefS(kind=kind)))
+        for eng in (port, ref):
+            eng.build(docs[:40])
+            eng.add_docs(docs[40:])
+            eng.delete_docs([1, 41])
+        for k in (1, 10, 70):
+            for g, w in zip(port.search(queries, k=k),
+                            ref.search(queries, k=k)):
+                np.testing.assert_array_equal(g, w)
+
+
+def _check_schedule_block_plan():
+    from document_search_engine_tpu.ops import schedule as ref_s
+    from document_search_engine_tpu_torch.ops import schedule as port_s
+
+    rng = np.random.default_rng(13)
+    lens = rng.integers(0, 9000, 50)
+    indptr = np.zeros(51, np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    for nq, s in ((0, 8), (1, 3), (300, 8)):
+        rows = rng.integers(0, 50, (nq, s)).astype(np.int32)
+        found = rng.random((nq, s)) < 0.8
+        for block in (128, 512, 2048, 4096):
+            assert port_s.block_plan(indptr, rows, found, block) == (
+                ref_s.block_plan(indptr, rows, found, block))
+            np.testing.assert_array_equal(
+                port_s.blocks_per_query(indptr, rows, found, block),
+                ref_s.blocks_per_query(indptr, rows, found, block))
+
+
 @pytest.mark.parametrize("module", [
     "tokenizer_and_hasher", "native_analyzer", "plan_cache", "oracle",
     "split_planner", "doc_quantiles", "corpus_loader", "eval_metrics",
-    "eval_harness", "delete_from_hosts",
+    "eval_harness", "delete_from_hosts", "vector_oracle",
+    "schedule_block_plan",
 ])
 def test_host_module_copy_matches_original(module):
     {
@@ -523,4 +584,6 @@ def test_host_module_copy_matches_original(module):
         "eval_metrics": _check_eval_metrics,
         "eval_harness": _check_eval_harness,
         "delete_from_hosts": _check_delete_from_hosts,
+        "vector_oracle": _check_vector_oracle,
+        "schedule_block_plan": _check_schedule_block_plan,
     }[module]()
