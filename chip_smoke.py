@@ -4,7 +4,8 @@ the hybrid rerank path search_rerank, the xla_rank, fused_dv and
 doc-range split serving paths, the index lifecycle (streaming build,
 delete, compact, save/load, the CLI), the sharded engine
 (DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card),
-and the reference scorers, the entry points and the trace.
+the reference scorers, the entry points and the trace, and the port's
+benchmark (`python -m document_search_engine_tpu_torch bench`).
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -163,12 +164,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card's busy share of the traced window (the union of its kernels
    over the span of all events), with the kernels' time by name, the
    union of the host's torch operators and the first kernel's start.
+10. The port's benchmark (phase_bench), with the parent's engines freed
+   first. In this process, the bench's own index
+   (bench.build_synth_engine at its defaults: 1,000,000 docs, Zipf df
+   at 60 postings a doc over 200,000 terms, doc/tf planes drawn on the
+   card, so a row may hold a doc twice): batch 0 of its queries (16,384,
+   make_batches) through the fused kernel must equal the dense
+   reference on 256 of them and the xla_rank scorer (the rank-only
+   kernel) on all, each kernel counted from 0 over its search. Then
+   `python -m document_search_engine_tpu_torch bench` in a subprocess
+   with every BENCH_* unset (bench.py's defaults: nq 16,384, k 10, 24
+   iters, depth 8, 8 batches, 5 passes; the host build, sharded, pack,
+   8M and stream legs), which must exit 0 within BENCH_TIMEOUT_S and
+   print its JSON line with the sharded, 8M and stream legs present and
+   a nonzero device pack time and step q/s; its log is passed on to
+   stderr, and its log must show the fused kernel launched in each leg
+   that serves (warm-up, primary, w/o analysis, the step alone, the
+   sharded windows, 8M). Reported: the line, the w/o-analysis q/s and
+   each leg's seconds, peak device bytes and kernel launches.
 
 stdout ends with the lifecycle path's JSON line, the sharded path's,
-the reference path's, the kernels' JSON line (the rank-only kernel's
-launches: the xla_rank path's and phase 9's packed step's), the card's
-name and power limit, and {"ok":
-true, "device": {...}} as the last line. Progress goes
+the reference path's, the bench's ("bench: ..."), the kernels' JSON
+line (the rank-only kernel's launches: the xla_rank path's and phase
+9's packed step's), the card's name and power limit, and {"ok": true,
+"device": {...}} as the last line. Progress goes
 to stderr. chip_ab.py runs this script in several trees in turn, for a
 comparison on one card in one go.
 """
@@ -239,6 +258,10 @@ PLANES = ("post_doc", "post_val", "post_tf", "indptr", "row_start")
 PACK_BLOCK, PACK_CHUNK_ELEMS, PLAIN_CHUNK_ELEMS = 512, 32 << 20, 16 << 20
 DENSE_SAMPLE, DENSE_CHUNK = 256, 64
 PARITY_DOCS, PARITY_QUERIES = 18_000, 64
+# phase 10: the bench's index at its defaults (bench.py's: 1M docs, Zipf
+# df at 60 postings a doc over max(50,000, docs // 5) terms, seed 1), and
+# the time limit of its subprocess
+SYNTH_DOCS, SYNTH_AVG_TERMS, BENCH_TIMEOUT_S = 1_000_000, 60, 600
 
 
 def log(msg: str) -> None:
@@ -1298,37 +1321,6 @@ def phase_oracle(device) -> int:
 
 
 # ------------------------------------------------------------ phase 4
-def synth_text_batches(n_docs, vocab, mean_len, batch_docs, seed=3):
-    """Zipf text: tokens s000000.. drawn with p ~ 1/rank, Poisson(mean)
-    lengths (>= 5) — the corpus of bench.py's streaming leg."""
-    rng = np.random.default_rng(seed)
-    tokens = np.array([f"s{i:06d}" for i in range(vocab)])
-    ranks = np.arange(1, vocab + 1, dtype=np.float64)
-    cdf = np.cumsum(1.0 / ranks)
-    cdf /= cdf[-1]
-    out = []
-    for lo in range(0, n_docs, batch_docs):
-        nb = min(batch_docs, n_docs - lo)
-        lens = np.maximum(5, rng.poisson(mean_len, nb))
-        ptr = np.zeros(nb + 1, np.int64)
-        np.cumsum(lens, out=ptr[1:])
-        toks = tokens[np.searchsorted(cdf, rng.random(int(ptr[-1])))]
-        out.extend(" ".join(toks[ptr[i] : ptr[i + 1]]) for i in range(nb))
-    return tokens, out
-
-
-def make_batches(df_by_row, tokens_by_row, nq, tpq, n_batches, seed=7):
-    """Raw-text query batches: tpq terms per query drawn uniformly from
-    the rows with 64 <= df <= 32768 (bench.py make_batches)."""
-    rng = np.random.default_rng(seed)
-    eligible = np.where((df_by_row >= 64) & (df_by_row <= 32768))[0]
-    batches = []
-    for _ in range(n_batches):
-        rows = rng.choice(eligible, size=(nq, tpq))
-        batches.append([" ".join(tokens_by_row[r] for r in qr) for qr in rows])
-    return batches
-
-
 def bucket_calls(captured):
     """Per bucket of one captured _batch_step: (segment, plan tables,
     the kernel's keyword arguments, dlim or None, dv plane or None)."""
@@ -1773,12 +1765,15 @@ def main_engine(device, res):
         IndexConfig,
         ScoringConfig,
         SearchEngine,
+        bench,
     )
     from document_search_engine_tpu_torch.analyze.hashing import TermHasher
 
     n_docs, nq, n_batches = N_DOCS, NQ, N_BATCHES
     t0 = time.perf_counter()
-    tokens, texts = synth_text_batches(n_docs, VOCAB, MEAN_LEN, 125_000)
+    tokens = bench.synth_tokens(VOCAB)
+    texts = [t for b in bench.synth_text_batches(n_docs, VOCAB, MEAN_LEN,
+                                                 125_000) for t in b]
     log(f"corpus: {n_docs} docs generated in "
         f"{time.perf_counter() - t0:.1f}s (not part of the build time)")
     cfg = IndexConfig(scoring=ScoringConfig(kind="bm25"))
@@ -1805,8 +1800,8 @@ def main_engine(device, res):
     df_by_row = np.where(
         [t is not None for t in tokens_by_row], eng.stats.df, 0
     )
-    batches = make_batches(df_by_row, tokens_by_row, nq, TERMS_PER_QUERY,
-                           n_batches)
+    batches, _avg = bench.make_batches(df_by_row, tokens_by_row, nq,
+                                       TERMS_PER_QUERY, n_batches)
     return eng, batches, texts
 
 
@@ -2575,6 +2570,7 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
 
     from document_search_engine_tpu_torch import (
         DistributedSearchEngine,
+        bench,
         make_mesh,
     )
     from document_search_engine_tpu_torch.ops import fused as F
@@ -2693,8 +2689,8 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
     assert_outs_equal(got, want, "sharded delete vs the single engine")
     if any(np.isin(ids, dead).any() for ids, _sc in got):
         raise AssertionError("a deleted doc came back")
-    add_texts = synth_text_batches(N_ADD, VOCAB, MEAN_LEN, N_ADD,
-                                   seed=seed + 6)[1]
+    add_texts = bench.synth_text_batches(N_ADD, VOCAB, MEAN_LEN, N_ADD,
+                                         seed=seed + 6)[0]
     idx_before = deng.index
     new_ids, res["add_s"] = timed_step(lambda: deng.add_docs(add_texts))
     # True: the add fit the padded shapes (_update_last_shard)
@@ -3175,6 +3171,140 @@ def phase_reference(device, texts, batches, base_outs, diffs):
     return res
 
 
+# ------------------------------------------------------------ phase 10
+def phase_synth(device, res):
+    """Step 1 of phase 10: the bench's own index (bench.build_synth_engine
+    at its defaults; postings drawn on the card, so a row may hold a doc
+    twice) held to the spec: batch 0 of its queries through the fused
+    kernel equals the dense reference on DENSE_SAMPLE queries, and the
+    xla_rank scorer (the rank-only kernel) on all NQ. Each kernel's
+    launches are counted from 0 over its search."""
+    import torch
+
+    from document_search_engine_tpu_torch import (
+        IndexConfig,
+        ScoringConfig,
+        bench,
+    )
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops.rank import rank_kernel
+
+    cfg = IndexConfig(scoring=ScoringConfig(kind="bm25"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, df, tokens = bench.build_synth_engine(
+        SYNTH_DOCS, max(50_000, SYNTH_DOCS // 5), SYNTH_AVG_TERMS, cfg,
+        seed=1, device=device)
+    torch.cuda.synchronize()
+    res["synth_build_s"] = time.perf_counter() - t0
+    host, seg = eng.segments[0]
+    flat = seg.post_doc.reshape(-1)
+    row_head = torch.zeros(flat.numel(), dtype=torch.bool, device=device)
+    row_head[seg.row_start.long()] = True
+    res["synth_postings"] = int(host.indptr[-1])
+    res["synth_slots"] = flat.numel()
+    res["synth_resident_bytes"] = eng.resident_bytes()
+    res["synth_repeated_docs"] = int(
+        ((flat[1:] == flat[:-1]) & (flat[1:] < SYNTH_DOCS)
+         & ~row_head[1:]).sum())
+    del flat, row_head
+    (batch,), avg = bench.make_batches(df, tokens, NQ, TERMS_PER_QUERY, 1)
+    reset_launches()
+    want = eng.search(batch, k=K)
+    res["synth_fused_launches"] = F.fused_search.launches
+    if res["synth_fused_launches"] <= 0:
+        raise AssertionError("the synthetic index's search launched no "
+                             "fused_search kernel")
+    phase_dense(eng, [batch], [want], res, seed=12)
+    eng.scorer = "xla_rank"
+    reset_launches()
+    got = eng.search(batch, k=K)
+    res["synth_rank_launches"] = rank_kernel.launches
+    if res["synth_rank_launches"] <= 0:
+        raise AssertionError("xla_rank on the synthetic index launched no "
+                             "rank_only kernel")
+    assert_outs_equal([got], [want], "synthetic index: xla_rank vs fused")
+    log(f"synthetic index: {SYNTH_DOCS} docs, {res['synth_postings']} "
+        f"postings in {res['synth_slots']} slots, "
+        f"{res['synth_repeated_docs']} repeated docs in rows, built in "
+        f"{res['synth_build_s']:.1f}s; batch 0 (avg postings/query {avg}): "
+        f"{DENSE_SAMPLE} == the dense reference, all {NQ} xla_rank == fused "
+        f"({res['synth_fused_launches']} fused, "
+        f"{res['synth_rank_launches']} rank_only launches)")
+
+
+def phase_bench(device):
+    """Phase 10: step 1 (phase_synth), then `python -m
+    document_search_engine_tpu_torch bench` in a subprocess with every
+    BENCH_* unset (bench.py's defaults, on the card), given the card
+    with the parent's engines freed. It must exit 0 and print its JSON
+    line with the sharded, 8M and stream legs present and a nonzero
+    device pack time and step q/s, and its log must show a fused_search
+    launch in each leg that serves. Returns the results: the line, the
+    w/o-analysis q/s and each leg's seconds, peak bytes and kernel
+    launches from the bench's log."""
+    import gc
+    import re
+
+    import torch
+
+    res = {}
+    phase_synth(device, res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "document_search_engine_tpu_torch", "bench"],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S,
+    )
+    res["bench_s"] = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited with {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    missing = [key for key in ("sharded", "m8", "stream") if out[key] is None]
+    missing += [key for key in ("device_pack_secs", "step_qps")
+                if not out[key]]
+    if missing:
+        raise AssertionError(f"bench legs missing: {missing}")
+    res["json"] = out
+    wo = re.search(r"^serving w/o analysis: ([\d,]+) q/s", proc.stderr,
+                   re.M)
+    res["wo_analysis_qps"] = float(wo.group(1).replace(",", ""))
+    res["legs"] = {
+        m.group(1): {
+            "s": float(m.group(2)),
+            "peak_bytes": int(m.group(3)) if m.group(3).isdigit() else None,
+            "launches": json.loads(m.group(4)),
+        }
+        for m in re.finditer(r"^leg (.+): ([\d.]+)s, peak device memory "
+                             r"(\S+) B, kernel launches (\{.*\})$",
+                             proc.stderr, re.M)
+    }
+    # the legs that serve through the fused kernel must have launched it
+    idle = [leg for leg in ("warmup", "primary", "serving w/o analysis",
+                            "device step only", "sharded serving", "8M")
+            if res["legs"][leg]["launches"].get("fused_search", 0) <= 0]
+    if idle:
+        raise AssertionError(f"bench legs without a fused_search launch: "
+                             f"{idle}")
+    log(f"bench: {out['value']:,.0f} q/s best, {out['median']:,.0f} median; "
+        f"w/o analysis {res['wo_analysis_qps']:,.0f}, step {out['step_qps']:,.0f}; "
+        f"1-shard overhead {out['sharded']['overhead_median_pct']:+.1f}%; "
+        f"pack {out['device_pack_secs']}s; 8M {out['m8']['median']:,.0f} q/s; "
+        f"stream {out['stream']['docs_per_sec']:,.0f} docs/s; "
+        f"{res['bench_s']:.1f}s in all")
+    return res
+
+
+
 def thread_sweep(threads=(256, 1024)):
     """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
     each bucket of one main-path batch (fused at k = 10 and 64, the dv
@@ -3292,6 +3422,9 @@ def main() -> int:
     ref = phase_reference(device, texts, batches, outs, diffs)
     del texts
     print("reference path: " + json.dumps(ref), flush=True)
+    # the bench subprocess gets the card without phase 4's engine
+    del eng, batches, outs, rerank_outs
+    print("bench: " + json.dumps(phase_bench(device)), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],

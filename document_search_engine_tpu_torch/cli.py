@@ -4,13 +4,14 @@
     python -m document_search_engine_tpu_torch search <idx_dir> "query text" -k 10
     python -m document_search_engine_tpu_torch serve  <idx_dir>  (queries on stdin)
     python -m document_search_engine_tpu_torch eval   [--kind bm25]
+    python -m document_search_engine_tpu_torch bench  (BENCH_* env knobs)
 
 Port of `document_search_engine_tpu/cli.py`, with the same commands,
 options and output lines. Every command runs on the card unless given
 `--device cpu`. An index saved by either package opens here, a sharded
 one (`index --shards N`) with DistributedSearchEngine on one shard a
-card (one on the CPU). Not ported yet, and refused with
-NotImplementedError naming its ROADMAP item: `bench` (A6).
+card (one on the CPU). `bench` runs the port's benchmark (bench.py in
+this package), where the JAX package's runs the repo-root bench.py.
 """
 from __future__ import annotations
 
@@ -18,12 +19,6 @@ import argparse
 import json
 import sys
 import time
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP {item})"
-    )
 
 
 def _open_index(index_dir: str, device):
@@ -181,8 +176,9 @@ def cmd_eval(args):
 
 
 def cmd_bench(args):
-    # the JAX package's bench runs bench.py, which imports that package
-    raise _not_ported("bench (the port's benchmark)", "A6")
+    from .bench import main as bench_main
+
+    return bench_main(device=args.device)
 
 
 def main(argv=None):
@@ -238,7 +234,7 @@ def main(argv=None):
     pe.set_defaults(fn=cmd_eval)
 
     pb = sub.add_parser("bench", parents=[common],
-                        help="the throughput benchmark (not ported yet)")
+                        help="the throughput benchmark: one JSON line")
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)

@@ -2,10 +2,11 @@
 search --rerank, serve on a stdin stream and eval, at --device cpu, with
 the printed hits equal to the library's on the saved index, for a single engine and for a
 2-shard index (index --shards 2, then search and serve on the sharded
-checkpoint); the card is the default device; what is not ported yet
-(bench) raises NotImplementedError naming its ROADMAP item, while the
-sharded commands, refused until the sharded engine was ported, now
-run; the corpus loader and the eval metrics."""
+checkpoint); bench at --device cpu with tiny BENCH_* knobs, every leg
+on, printing its one JSON line; the card is the default device (bench
+included); the commands refused until their modules were ported (the
+sharded ones, bench) now run; the corpus loader and the eval
+metrics."""
 import io
 import json
 import re
@@ -112,12 +113,16 @@ def test_cli_runs_on_the_card_by_default(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["index_shards", "sharded_index", "bench"])
-def test_cli_refuses_what_is_not_ported(what, tmp_path, capsys):
-    """bench is not ported (A6) and raises; index --shards and a sharded
-    checkpoint were refused the same way until the sharded engine was
-    ported (A13), and now run."""
+def test_cli_refuses_what_is_not_ported(what, tmp_path, capsys,
+                                        monkeypatch):
+    """Each of these was refused with NotImplementedError until its
+    module was ported, and now runs: index --shards and a sharded
+    checkpoint (the sharded engine), and bench (the port's benchmark),
+    which like every command means the card without --device, and so
+    raises "CUDA is not available" on a machine without one."""
     if what == "bench":
-        with pytest.raises(NotImplementedError, match="A6"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["bench"])
         return
     idx = str(tmp_path / "x")
@@ -127,6 +132,48 @@ def test_cli_refuses_what_is_not_ported(what, tmp_path, capsys):
     if what == "sharded_index":
         assert main(["search", idx, "apples", "--device", "cpu"]) == 0
         assert HIT.match(capsys.readouterr().out.splitlines()[0])
+
+
+BENCH_TINY = {
+    "BENCH_DOCS": "3000", "BENCH_NQ": "32", "BENCH_ITERS": "2",
+    "BENCH_BATCHES": "2", "BENCH_PASSES": "2", "BENCH_BUILD": "1",
+    "BENCH_BUILD_DEVICE": "1", "BENCH_SHARDS": "1", "BENCH_PACK": "1",
+    "BENCH_8M": "1", "BENCH_8M_DOCS": "4000", "BENCH_8M_PASSES": "1",
+    "BENCH_STREAM": "1", "BENCH_STREAM_DOCS": "2000",
+    "BENCH_STREAM_BATCH": "400",
+}
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "median", "passes",
+    "compile_warmup_secs", "levers", "hbm_bytes", "n_docs", "step_qps",
+    "sharded", "sharded_qps_1shard", "device_pack_secs",
+    "build_docs_per_sec_host", "m8", "stream",
+}
+
+
+def test_cli_bench_on_cpu(capsys, monkeypatch):
+    """bench --device cpu at tiny BENCH_* sizes with every leg on prints
+    exactly one line on stdout, the JSON object of bench.py's keys (its
+    tunnel probes and cooldown aside), no leg null."""
+    for key, val in BENCH_TINY.items():
+        monkeypatch.setenv(key, val)
+    assert main(["bench", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1, lines
+    res = json.loads(lines[0])
+    assert set(res) == BENCH_KEYS
+    assert not [key for key, val in res.items() if val is None], res
+    assert res["metric"] == "queries_per_sec_per_chip" and res["unit"] == "qps"
+    assert res["n_docs"] == 3000 and len(res["passes"]) == 2
+    assert res["value"] == max(res["passes"]) > 0
+    assert res["levers"]["scorer"] == "xla" and res["levers"]["nq"] == 32
+    assert res["step_qps"] > 0 and res["device_pack_secs"] > 0
+    assert res["build_docs_per_sec_host"] > 0 and res["hbm_bytes"] > 0
+    assert len(res["sharded"]["passes"]) == 5
+    assert res["sharded_qps_1shard"] == res["sharded"]["best"]
+    assert res["m8"]["n_docs"] == 4000 and res["m8"]["step_qps"] > 0
+    assert res["m8"]["hbm_bytes"] > 0
+    assert res["stream"]["n_docs"] == 2000 and res["stream"]["batches"] == 5
+    assert res["stream"]["segments"] == 1  # auto-compacted past 4
 
 
 def test_cli_sharded_index_search_and_serve(tmp_path, capsys, monkeypatch):

@@ -4,8 +4,9 @@ engine on a 2-shard CPU mesh too); no module of the port, and not
 chip_smoke.py, imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
-compact), its checkpoints, its CLI, its entry points (entry.py) and its
-phase timers run on the CPU; the kernel
+compact), its checkpoints, its CLI, its entry points (entry.py), its
+phase timers and its benchmark's synthetic index (bench.py) run on the
+CPU; the kernel
 wrapper takes its plain version for CPU tensors without counting a
 launch; and each host module the port keeps its own copy of behaves as
 its original in the JAX package on the same inputs."""
@@ -105,6 +106,13 @@ prof.reset()
 eng.search(["quick fox"], k=3)
 assert set(json.loads(prof.metrics_json())["phases_s"]) == {
     "search.analyze", "search.score"}
+# the benchmark's synthetic index
+from document_search_engine_tpu_torch import bench
+b_eng, b_df, b_tok = bench.build_synth_engine(600, 400, 10, IndexConfig(),
+                                              device="cpu")
+b_batches, _avg = bench.make_batches(b_df, b_tok, 8, 4, 1)
+b_ids, _b_sc = b_eng.search(b_batches[0], k=5)
+assert b_ids.shape == (8, 5) and (b_ids[:, 0] >= 0).all(), b_ids
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
