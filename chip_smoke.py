@@ -65,6 +65,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Zipf vocabulary, 40 tokens per doc on average) built through
    SearchEngine.build, then search_stream over 4 batches of 16,384
    raw-text queries (8 terms of df 64..32768 each), k=10, depth 2. The
+   build's peak device bytes above its start must stay within the build
+   rule: the resident index + 12 B x the triples' nnz_cap
+   (builder.shape_bucket of the postings) + 512 MiB of chunk workspace;
+   the segment is then built once more with the peak read around each
+   stage (device_pack, device_align_planes, device_materialize_vals),
+   and the log line prints the three. The
    kernel's launch count over that run must be > 0, and per batch a
    seeded sample of >= 1,024 queries covering every bucket cell must
    equal the plain scorer on the card. Serving q/s is the median of 5
@@ -110,20 +116,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    results), then compact(): the results stay, and the device bytes it
    frees must cover the old planes, the dv planes and the quantile
    tables (allocated after - before <= resident after - before + 5% of
-   resident after); save, then SearchEngine.load on the card by default:
+   resident after), and its peak above its start must stay within the
+   build rule of phase 4 with the compacted segment's resident bytes and
+   nnz_cap (the streaming build's peak is logged against the same rule,
+   not gated: its batches' segments are resident when the final compact
+   builds); save, then SearchEngine.load on the card by default:
    the same resident bytes and results, and no layout grows on replay;
    the CLI (index, 16 searches, serve) with its default device on a
    2,000-doc corpus, whose printed hits must equal the library's. The
    fused kernel and its dv and dlim load stages must have launched.
    Reported: the seconds of the streaming build (and the share of its
    final compact), the delete, the compact, save and load; the peak
-   device bytes of the build and the compact; the checkpoint's bytes;
+   device bytes of the build and the compact, and their rule's bytes;
+   the checkpoint's bytes;
    serving q/s after the compact (the median of 5 passes).
 8. The sharded engine at full size (phase_sharded), on phase 4's corpus
    and batches, every shard on the card: for each of 1, 2, 4 and 8
    shards a DistributedSearchEngine built from the corpus, whose results
-   equal phase 4's on all queries and whose fused kernel launched once
-   per shard and bucket. At 4 shards: scorer "xla_rank", split_rows 128
+   equal phase 4's on all queries, whose fused kernel launched once per
+   shard and bucket, and whose build's peak above its start stays within
+   the build rule of phase 4 with the sharded resident bytes and the
+   triples of all shards. At 4 shards: scorer "xla_rank", split_rows 128
    and a host build (device_build = False; its value planes torch.equal
    to the device build's) equal phase 4's results, and search_rerank
    (k=10, 64 candidates, dim 256) equals phase 5's single-engine rerank;
@@ -176,8 +189,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with every BENCH_* unset (bench.py's defaults: nq 16,384, k 10, 24
    iters, depth 8, 8 batches, 5 passes; the host build, sharded, pack,
    8M and stream legs), which must exit 0 within BENCH_TIMEOUT_S and
-   print its JSON line with the sharded, 8M and stream legs present and
-   a nonzero device pack time and step q/s; its log is passed on to
+   print its JSON line with the sharded, 8M and stream legs present,
+   a nonzero device pack time and step q/s, and the 8M leg's peak
+   device bytes (m8.peak_bytes) below 16,000,000,000, the 16 GB chip on
+   which the reference built the same leg; its log is passed on to
    stderr, and its log must show the fused kernel launched in each leg
    that serves (warm-up, primary, w/o analysis, the step alone, the
    sharded windows, 8M). Reported: the line, the w/o-analysis q/s and
@@ -262,6 +277,12 @@ PARITY_DOCS, PARITY_QUERIES = 18_000, 64
 # df at 60 postings a doc over max(50,000, docs // 5) terms, seed 1), and
 # the time limit of its subprocess
 SYNTH_DOCS, SYNTH_AVG_TERMS, BENCH_TIMEOUT_S = 1_000_000, 60, 600
+# the build gates (phases 4, 7, 8): a build's peak device bytes above its
+# start may hold the index it builds, its uploaded int32 (row, doc, tf)
+# triples (12 B each) and one chunk's workspace; and the bench's 8M leg
+# must peak below the 16 GB chip on which the reference built it
+TRIPLE_BYTES, BUILD_WORKSPACE_BYTES = 12, 512 << 20
+M8_PEAK_LIMIT_BYTES = 16_000_000_000
 
 
 def log(msg: str) -> None:
@@ -1754,11 +1775,69 @@ def rank_chunks(d_key, ci, p, chunk_elems=64 << 20):
     return torch.cat([v for v, _g in parts]), torch.cat([g for _v, g in parts])
 
 
+def build_bound(resident, triples) -> int:
+    """The build gates' limit in bytes above the build's start: the
+    index built, its uploaded triples and one chunk's workspace."""
+    return resident + TRIPLE_BYTES * triples + BUILD_WORKSPACE_BYTES
+
+
+def check_build_peak(what, peak_extra, resident, triples) -> int:
+    """Fail the run when a build's peak above its start passes
+    build_bound; returns the bound."""
+    bound = build_bound(resident, triples)
+    if peak_extra > bound:
+        raise AssertionError(
+            f"{what}: peak {peak_extra} B above the start > {bound} B "
+            f"(resident {resident} B + {TRIPLE_BYTES} B x {triples} "
+            f"triples + {BUILD_WORKSPACE_BYTES} B)")
+    return bound
+
+
+def build_stage_peaks(eng):
+    """The device build's peak bytes by stage: build_segment_device once
+    more on the analyzed docs that the engine's one segment keeps, with
+    the peak reset around each of device_pack, device_align_planes and
+    device_materialize_vals. Returns {stage: peak bytes above the
+    stage's start (its inputs already resident)}."""
+    import torch
+
+    from document_search_engine_tpu_torch.index import builder
+
+    host = eng.segments[0][0]
+    analyzed = builder.AnalyzedDocs(hashes=host.doc_hashes,
+                                    tfs=host.doc_tfs, doc_ptr=host.doc_ptr,
+                                    dl=host.dl)
+    names = ("device_pack", "device_align_planes", "device_materialize_vals")
+    originals = {name: getattr(builder, name) for name in names}
+    peaks = {}
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - m0
+            return out
+        return run
+
+    for name, fn in originals.items():
+        setattr(builder, name, staged(name, fn))
+    try:
+        builder.build_segment_device(analyzed, eng.config, eng.device)
+    finally:
+        for name, fn in originals.items():
+            setattr(builder, name, fn)
+    return peaks
+
+
 def main_engine(device, res):
     """The main path's index (phase 4): the 1M-doc corpus built through
-    SearchEngine.build (its build time, postings and resident bytes into
-    res), and its N_BATCHES query batches. Returns (engine, batches,
-    texts)."""
+    SearchEngine.build (its build time, postings, resident bytes and peak
+    bytes above the start into res, the peak gated by build_bound, then
+    the peak of each build stage), and its N_BATCHES query batches.
+    Returns (engine, batches, texts)."""
     import torch
 
     from document_search_engine_tpu_torch import (
@@ -1768,6 +1847,7 @@ def main_engine(device, res):
         bench,
     )
     from document_search_engine_tpu_torch.analyze.hashing import TermHasher
+    from document_search_engine_tpu_torch.index.builder import shape_bucket
 
     n_docs, nq, n_batches = N_DOCS, NQ, N_BATCHES
     t0 = time.perf_counter()
@@ -1780,15 +1860,28 @@ def main_engine(device, res):
     eng = SearchEngine(cfg, device=device)
     sync = torch.cuda.synchronize
     sync()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng.build(texts)
     sync()
     res["build_s"] = time.perf_counter() - t0
+    res["build_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - m0
     host = eng.segments[0][0]
     res["postings"] = int(host.indptr[-1])
+    res["nnz_cap"] = shape_bucket(res["postings"])
     res["resident_bytes"] = eng.resident_bytes()
+    res["build_peak_bound_bytes"] = check_build_peak(
+        "phase 4 build", res["build_peak_extra_bytes"],
+        res["resident_bytes"], res["nnz_cap"])
+    res["build_stage_peak_bytes"] = build_stage_peaks(eng)
+    stages = ", ".join(f"{name} {b}"
+                       for name, b in res["build_stage_peak_bytes"].items())
     log(f"build: {n_docs} docs, {res['postings']} postings, "
-        f"{res['resident_bytes']} resident bytes in {res['build_s']:.1f}s")
+        f"{res['resident_bytes']} resident bytes in {res['build_s']:.1f}s; "
+        f"peak {res['build_peak_extra_bytes']} B above the start (gate "
+        f"{res['build_peak_bound_bytes']} B); stage peaks above each "
+        f"stage's start: {stages} B")
 
     # query text over the vocabulary rows that made it into the index
     hashes = TermHasher().hash_tokens(list(tokens))
@@ -2338,6 +2431,7 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
 
     from document_search_engine_tpu_torch import SearchEngine
     from document_search_engine_tpu_torch.corpus.loader import stream_batches
+    from document_search_engine_tpu_torch.index.builder import shape_bucket
     from document_search_engine_tpu_torch.ops import fused as F
 
     sync = torch.cuda.synchronize
@@ -2378,10 +2472,17 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
         raise AssertionError(f"streaming planes != phase 4's: {same}")
     assert_outs_equal(serve_all(seng, batches), base_outs,
                       "streaming build vs phase 4")
+    # logged against the build gates' rule, not gated: the batches'
+    # segments are all resident when the final compact builds
+    res["streaming_peak_rule_bytes"] = build_bound(
+        seng.resident_bytes(),
+        shape_bucket(int(seng.segments[0][0].indptr[-1])))
     log(f"streaming build: {res['n_docs']} docs in 8 batches, "
         f"{res['streaming_build_s']:.2f}s ({compact_s[0]:.2f}s of it the "
         f"final compact), peak {res['streaming_peak_extra_bytes']} B above "
-        f"the start; planes and all {nq} results == phase 4's")
+        f"the start (the build rule, not gated: "
+        f"{res['streaming_peak_rule_bytes']} B); planes and all {nq} "
+        f"results == phase 4's")
 
     # 2. one delete of 10%, on both engines
     rng = np.random.default_rng(seed)
@@ -2440,6 +2541,9 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
         raise AssertionError(
             f"compact freed too little: allocated {a} -> {b}, resident "
             f"{r0} -> {r1}")
+    res["compact_peak_bound_bytes"] = check_build_peak(
+        "phase 7 compact", res["compact_peak_extra_bytes"], r1,
+        shape_bucket(int(seng.segments[0][0].indptr[-1])))
     seng.preplan(batches, k=K)
     c_outs = serve_all(seng, batches)
     assert_outs_equal(c_outs, d_outs, "compact")
@@ -2452,7 +2556,8 @@ def phase_lifecycle(eng, batches, base_outs, texts, sample=1024, seed=11):
     res["serving_qps_after_compact"] = float(np.median(qps))
     res["serving_qps_after_compact_passes"] = qps
     log(f"compact: {res['compact_s']:.2f}s, peak "
-        f"{res['compact_peak_extra_bytes']} B above the start; allocated "
+        f"{res['compact_peak_extra_bytes']} B above the start (gate "
+        f"{res['compact_peak_bound_bytes']} B); allocated "
         f"{a} -> {b} B, resident {r0} -> {r1} B (dv planes and quantile "
         f"tables held {res['cache_bytes_before_compact']} B); all results "
         f"unchanged; serving after it: median "
@@ -2597,6 +2702,10 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
         r["build_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - m0
         r["resident_bytes"] = deng.resident_bytes()
         idx = deng.index
+        r["triples"] = sum(int(h.indptr[-1]) for h in idx.hosts)
+        r["build_peak_bound_bytes"] = check_build_peak(
+            f"phase 8 build at {n} shards", r["build_peak_extra_bytes"],
+            r["resident_bytes"], r["triples"])
         r.update(d_pad=idx.d_pad, t_pad=idx.t_pad, x_rows=idx.x_rows)
         deng.preplan(batches, k=K)
         _o, r["warmup_s"] = timed_step(
@@ -2619,7 +2728,8 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
             deng, batches, SHARDED_PASSES)
         res["per_shards"][str(n)] = r
         log(f"{n} shards: build {r['build_s']:.2f}s (peak "
-            f"{r['build_peak_extra_bytes']} B above the start), resident "
+            f"{r['build_peak_extra_bytes']} B above the start, gate "
+            f"{r['build_peak_bound_bytes']} B), resident "
             f"{r['resident_bytes']} B (x_rows {idx.x_rows}, d_pad "
             f"{idx.d_pad}); all {nq} results == phase 4's; "
             f"{r['launches']} fused launches ({n} x {sum(buckets)} buckets)"
@@ -3274,6 +3384,10 @@ def phase_bench(device):
                 if not out[key]]
     if missing:
         raise AssertionError(f"bench legs missing: {missing}")
+    if out["m8"]["peak_bytes"] >= M8_PEAK_LIMIT_BYTES:
+        raise AssertionError(
+            f"bench 8M leg peaked at {out['m8']['peak_bytes']} B, not below "
+            f"{M8_PEAK_LIMIT_BYTES} B")
     res["json"] = out
     wo = re.search(r"^serving w/o analysis: ([\d,]+) q/s", proc.stderr,
                    re.M)
@@ -3298,7 +3412,8 @@ def phase_bench(device):
     log(f"bench: {out['value']:,.0f} q/s best, {out['median']:,.0f} median; "
         f"w/o analysis {res['wo_analysis_qps']:,.0f}, step {out['step_qps']:,.0f}; "
         f"1-shard overhead {out['sharded']['overhead_median_pct']:+.1f}%; "
-        f"pack {out['device_pack_secs']}s; 8M {out['m8']['median']:,.0f} q/s; "
+        f"pack {out['device_pack_secs']}s; 8M {out['m8']['median']:,.0f} q/s, "
+        f"peak {out['m8']['peak_bytes']} B (gate < {M8_PEAK_LIMIT_BYTES}); "
         f"stream {out['stream']['docs_per_sec']:,.0f} docs/s; "
         f"{res['bench_s']:.1f}s in all")
     return res

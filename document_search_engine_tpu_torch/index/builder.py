@@ -9,7 +9,12 @@ then one copy of the planes to the device). The device half
 (`device_pack`, `device_align_planes`, `device_materialize_vals`,
 `build_segment_device`, `refresh_segment_vals`,
 `device_row_doc_quantiles_b`) is written in torch ops and produces the
-reference's planes bit for bit (tests/test_torch_build).
+reference's planes bit for bit (tests/test_torch_build). Where XLA fuses
+each build stage into one pass, torch runs one op at a time, so the
+pack, the aligned scatter and the value materialization walk their
+input in chunks (PACK_CHUNK postings, VAL_BLOCK_ROWS plane rows) into
+preallocated outputs: their temporaries stay a chunk long whatever the
+plane (tests/test_torch_build_chunks).
 
 Two reference semantics do not carry over and are made explicit here:
 JAX drops out-of-range scatter updates and clamps out-of-range gathers,
@@ -40,6 +45,11 @@ from .csr import (
 
 F32 = np.float32
 LANES = 128
+# The device build's chunks (device_pack, device_align_planes,
+# device_materialize_vals): each keeps ~60 B of temporaries a posting or
+# slot, so a chunk of 4M holds ~256 MiB whatever the plane or nnz.
+PACK_CHUNK = 1 << 22  # postings
+VAL_BLOCK_ROWS = 1 << 15  # plane rows (4M slots)
 
 
 @dataclass
@@ -163,30 +173,77 @@ def device_pack(
     tfs: torch.Tensor,  # (nnz,) int32
     n_terms: int,
     n_docs: int,
+    chunk: int = PACK_CHUNK,
 ):
-    """CSR pack on the device: ONE sort on the int64 key (row << 32) |
-    doc (rows and docs are non-negative, so the key order is the
-    (row, doc) order), then searchsorted indptr and the df/dl counts.
-    Returns (r, d, t, indptr, df, dl) like the reference. Sentinel
-    triples (row == n_terms, doc == n_docs) sort last and are masked
-    out of the df/dl scatters, where JAX dropped them as out of range."""
-    key = (rows.to(torch.int64) << 32) | docs.to(torch.int64)
-    key_s, order = torch.sort(key, stable=True)
-    r64 = key_s >> 32
-    r = r64.to(torch.int32)
-    d = (key_s & 0xFFFFFFFF).to(torch.int32)
-    t = tfs[order]
+    """CSR pack on the device: the triples in the stable order of the
+    int64 key (row << 32) | doc (rows and docs are non-negative, so the
+    key order is the (row, doc) order; repeated pairs keep their input
+    order), the indptr and the df/dl counts. Returns (r, d, t, indptr,
+    df, dl) like the reference. Sentinel triples (row == n_terms, doc ==
+    n_docs) sort last and are masked out of the df/dl scatters, where
+    JAX dropped them as out of range.
+
+    No temporary is longer than `chunk` postings or the longest row:
+    one pass over the input counts each row (rows past the vocabulary
+    share bin n_terms) and the docs' lengths; the counts' prefix sum is
+    the indptr, which cuts the rows into groups of at most `chunk`
+    postings (a longer row is a group of its own); a second pass moves
+    each input chunk's postings, in input order, into their group's
+    stretch of the outputs; then each group is sorted on its int64 key
+    in place. A group holds every posting whose key lies between its
+    first and last row's, so sorting groups one by one gives the order
+    one stable sort of the whole key would."""
     dev = rows.device
-    indptr = torch.searchsorted(
-        r64, torch.arange(n_terms + 1, dtype=torch.int64, device=dev)
-    ).to(torch.int32)
-    live_r = r < n_terms
-    df = torch.bincount(r[live_r].long(), minlength=n_terms)[:n_terms]
-    live_d = d < n_docs
-    dl = torch.zeros(n_docs, dtype=torch.int32, device=dev).index_add_(
-        0, d[live_d].long(), t[live_d]
-    )
-    return r, d, t, indptr, df.to(torch.int32), dl
+    nnz = rows.shape[0]
+    counts = torch.zeros(n_terms + 1, dtype=torch.int64, device=dev)
+    dl = torch.zeros(n_docs, dtype=torch.int32, device=dev)
+    for c0 in range(0, nnz, chunk):
+        bins = rows[c0 : c0 + chunk].clamp(max=n_terms).long()
+        counts += torch.bincount(bins, minlength=n_terms + 1)
+        dc = docs[c0 : c0 + chunk]
+        live_d = dc < n_docs
+        dl.index_add_(0, dc[live_d].long(), tfs[c0 : c0 + chunk][live_d])
+    bounds = torch.zeros(n_terms + 2, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=bounds[1:])
+    indptr = bounds[: n_terms + 1].to(torch.int32)
+    df = counts[:n_terms].to(torch.int32)
+
+    # groups of whole bins, greedily up to `chunk` postings each
+    b = bounds.cpu().numpy()
+    starts = [0]
+    while starts[-1] <= n_terms:
+        s = starts[-1]
+        e = int(np.searchsorted(b, b[s] + chunk, side="right")) - 1
+        starts.append(max(e, s + 1))
+    edges = b[starts]  # each group's first posting, then nnz
+    n_groups = len(starts) - 1
+    group_of = torch.from_numpy(np.repeat(
+        np.arange(n_groups, dtype=np.int64), np.diff(starts))).to(dev)
+    cursor = torch.from_numpy(edges[:-1].copy()).to(dev)
+
+    r = torch.empty_like(rows)
+    d = torch.empty_like(docs)
+    t = torch.empty_like(tfs)
+    for c0 in range(0, nnz, chunk):
+        rc = rows[c0 : c0 + chunk]
+        g, order = torch.sort(group_of[rc.clamp(max=n_terms).long()],
+                              stable=True)
+        cnt = torch.bincount(g, minlength=n_groups)
+        first = torch.cumsum(cnt, 0) - cnt
+        n = rc.shape[0]
+        dst = cursor[g] + (
+            torch.arange(n, dtype=torch.int64, device=dev) - first[g])
+        r[dst] = rc[order]
+        d[dst] = docs[c0 : c0 + chunk][order]
+        t[dst] = tfs[c0 : c0 + chunk][order]
+        cursor += cnt
+    for p0, p1 in zip(edges[:-1].tolist(), edges[1:].tolist()):
+        key = (r[p0:p1].to(torch.int64) << 32) | d[p0:p1].to(torch.int64)
+        key, order = torch.sort(key, stable=True)
+        r[p0:p1] = (key >> 32).to(torch.int32)
+        d[p0:p1] = (key & 0xFFFFFFFF).to(torch.int32)
+        t[p0:p1] = t[p0:p1][order]
+    return r, d, t, indptr, df, dl
 
 
 def exact_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -221,8 +278,13 @@ def device_materialize_vals(
     alive: torch.Tensor,  # (d_pad,) bool
     k1p1: torch.Tensor,  # f32 0-d tensor — bm25 numerator factor k1 + 1
     kind: str,
+    block_rows: int = VAL_BLOCK_ROWS,
 ) -> torch.Tensor:
-    """The bitcast-f32 posting value plane from device-resident inputs.
+    """The bitcast-f32 posting value plane from device-resident inputs,
+    written into one preallocated (X, 128) int32 plane `block_rows` plane
+    rows at a time: a slot's value depends on its own inputs only, so
+    the blocks give the whole plane's bits while every temporary stays
+    one block long.
 
     K(dl) = c0 + c1*dl stays on the host (numpy, exactly rounded mul
     then add), as in the reference: a fused multiply-add on the device
@@ -230,14 +292,17 @@ def device_materialize_vals(
     (gather, add, mul, div) hold no mul->add pair. Padding postings
     (tf 0, K 0) divide 0/0 = NaN in bm25, so the alive mask is an
     explicit select, never a multiply: the padding bits are +0.0."""
-    tff = post_tf.to(torch.float32)
-    pd = post_doc.long()
-    if kind == "tfidf":
-        val = tff * inv_norm[pd]
-    else:  # bm25: val = (tf*(k1+1)) / (tf + K[doc]), exactly rounded
-        val = exact_div(tff * k1p1, tff + k_doc[pd])
-    val = torch.where(alive[pd], val, torch.zeros_like(val))
-    return val.view(torch.int32)
+    out = torch.empty_like(post_doc)
+    for r0 in range(0, post_doc.shape[0], block_rows):
+        tff = post_tf[r0 : r0 + block_rows].to(torch.float32)
+        pd = post_doc[r0 : r0 + block_rows].long()
+        if kind == "tfidf":
+            val = tff * inv_norm[pd]
+        else:  # bm25: val = (tf*(k1+1)) / (tf + K[doc]), exactly rounded
+            val = exact_div(tff * k1p1, tff + k_doc[pd])
+        val = torch.where(alive[pd], val, torch.zeros_like(val))
+        out[r0 : r0 + block_rows] = val.view(torch.int32)
+    return out
 
 
 def device_align_planes(
@@ -247,25 +312,31 @@ def device_align_planes(
     indptr: torch.Tensor,  # (T+1,) true cumulative lengths
     row_start: torch.Tensor,  # (T,) aligned flat starts
     x_rows: int,
-    n_docs: int,
+    n_docs: int,  # the doc plane's padding
+    chunk: int = PACK_CHUNK,
 ):
     """Scatter the sorted postings into the aligned (X, 128) doc/tf
-    planes. Sentinel postings (row >= T) and any position outside the
-    plane are masked by index before the scatter (the reference relied
-    on XLA dropping them)."""
+    planes, `chunk` postings at a time (their int64 positions exist only
+    for the chunk). Sentinel postings (row >= T) and any position
+    outside the plane are masked by index before the scatter (the
+    reference relied on XLA dropping them)."""
     nnz = d.shape[0]
     n_rows = row_start.shape[0]
     dev = d.device
-    live = r < n_rows
-    rl = r[live].long()
-    i = torch.arange(nnz, dtype=torch.int64, device=dev)[live]
-    pos = row_start[rl].long() + (i - indptr[rl].long())
-    inside = (pos >= 0) & (pos < x_rows * LANES)
-    pos = pos[inside]
-    doc2 = torch.full((x_rows * LANES,), n_docs, dtype=torch.int32, device=dev)
-    tf2 = torch.zeros(x_rows * LANES, dtype=torch.int32, device=dev)
-    doc2[pos] = d[live][inside]
-    tf2[pos] = t[live][inside]
+    total = x_rows * LANES
+    doc2 = torch.full((total,), n_docs, dtype=torch.int32, device=dev)
+    tf2 = torch.zeros(total, dtype=torch.int32, device=dev)
+    for c0 in range(0, nnz, chunk):
+        rc = r[c0 : c0 + chunk]
+        live = rc < n_rows
+        rl = rc[live].long()
+        i = torch.arange(c0, c0 + rc.shape[0], dtype=torch.int64,
+                         device=dev)[live]
+        pos = row_start[rl].long() + (i - indptr[rl].long())
+        inside = (pos >= 0) & (pos < total)
+        pos = pos[inside]
+        doc2[pos] = d[c0 : c0 + chunk][live][inside]
+        tf2[pos] = t[c0 : c0 + chunk][live][inside]
     return doc2.reshape(x_rows, LANES), tf2.reshape(x_rows, LANES)
 
 

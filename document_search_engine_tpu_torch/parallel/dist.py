@@ -24,10 +24,10 @@ past every shard's real local ids. Scores are integer fixed point, so
 rankings are bit-identical for every shard count.
 
 The sharded build (device_build, the default) packs every shard on its
-device: sort the (global row, local doc, tf) triples, scatter the
-aligned planes, materialize the values (index/builder.py's FMA-free
-arithmetic and its +0.0 padding select), count the local df, and psum
-it. The host build (device_build=False) packs each shard's CSR on the
+device through index/builder.py's chunked device build: sort the
+(global row, local doc, tf) triples, scatter the aligned planes,
+materialize the values (its FMA-free arithmetic and its +0.0 padding
+select), count the local df, and psum it. The host build (device_build=False) packs each shard's CSR on the
 host and assembles the planes there (assemble_sharded), as checkpoint
 loads, reshards and compactions do. The two pad the doc plane
 differently, as in the reference: the SPMD build with d_pad - 1, the
@@ -258,9 +258,8 @@ def build_sharded(
 
 
 def _spmd_build_step(
-    rows,  # per shard (nnz_i,) i32 GLOBAL term rows
-    docs,  # per shard (nnz_i,) i32 local doc ids
-    tfs,  # per shard (nnz_i,) i32
+    triples,  # iterator, per shard in turn: ((nnz_i,) i32 GLOBAL term
+    #           rows, local doc ids, tfs) on its device
     indptr_g,  # per shard (t_pad+1,) i32
     row_start_g,  # per shard (t_pad,) i32
     k_doc,  # per shard (d_pad,) f32
@@ -273,35 +272,30 @@ def _spmd_build_step(
     kind: str,
     mesh_: Mesh,
 ):
-    """The sharded build's device work, per shard on its device: sort
-    the (row, doc, tf) triples, scatter the aligned (X, 128) doc/tf
-    planes (padding d_pad - 1), materialize the value plane and count the
-    local df; then ONE psum over the shards gives the corpus-global df
-    (tests pin it equal to the host vocab-union merge). Returns (doc
-    planes, tf planes, value planes, global df (t_pad,) i32 on the
-    mesh's first device)."""
-    total = x_rows * builder.LANES
+    """The sharded build's device work, per shard on its device, through
+    the single engine's chunked build: builder.device_pack sorts the
+    (row, doc, tf) triples over the t_pad global rows (its df is the
+    shard's local df), builder.device_align_planes scatters them into
+    the aligned (X, 128) doc/tf planes through the shard's global-row
+    tables with the padding d_pad - 1, and the value plane is
+    materialized; then ONE psum over the shards gives the corpus-global
+    df (tests pin it equal to the host vocab-union merge). `triples` is
+    an iterator, so a shard's triples need exist only while it is
+    packed: they are taken with next(), because zip and enumerate keep
+    their last item alive. Returns (doc planes, tf planes, value planes,
+    global df (t_pad,) i32 on the mesh's first device)."""
     pds, pts, pvs, dfs = [], [], [], []
     for i in range(mesh_.size):
-        r, d, t = rows[i], docs[i], tfs[i]
-        ip, rs = indptr_g[i], row_start_g[i]
-        dev = r.device
-        # (row, doc) pairs are unique: one int64 key sorts them exactly
-        key = (r.to(torch.int64) << 32) | d.to(torch.int64)
-        key_s, order = torch.sort(key, stable=True)
-        r_s = (key_s >> 32).to(torch.int32)
-        d_s = (key_s & 0xFFFFFFFF).to(torch.int32)
-        t_s = t[order]
-        ii = torch.arange(r_s.shape[0], dtype=torch.int64, device=dev)
-        rl = r_s.long()
-        pos = rs[rl].long() + (ii - ip[rl].long())
-        doc2 = torch.full((total,), d_pad - 1, dtype=torch.int32, device=dev)
-        tf2 = torch.zeros(total, dtype=torch.int32, device=dev)
-        doc2[pos] = d_s
-        tf2[pos] = t_s
-        dfs.append(torch.bincount(rl, minlength=t_pad).to(torch.int32))
-        doc2 = doc2.reshape(x_rows, builder.LANES)
-        tf2 = tf2.reshape(x_rows, builder.LANES)
+        r, d, t = next(triples)
+        r, d, t, _ip, df, _dl = builder.device_pack(
+            r, d, t, n_terms=t_pad, n_docs=d_pad
+        )
+        doc2, tf2 = builder.device_align_planes(
+            r, d, t, indptr_g[i], row_start_g[i], x_rows=x_rows,
+            n_docs=d_pad - 1,
+        )
+        del r, d, t
+        dfs.append(df)
         pds.append(doc2)
         pts.append(tf2)
         pvs.append(_materialize_plane(doc2, tf2, k_doc[i], inv_norm[i],
@@ -389,23 +383,26 @@ def _build_sharded_from_parts(parts, config: IndexConfig, mesh: Mesh):
     ipg, rsg = _global_tables(hosts, stats, t_pad)
 
     devs = mesh.devices
-    rows_d, docs_d, tfs_d, kd_d, inv_d, al_d = [], [], [], [], [], []
-    for i, ((lo, a), h) in enumerate(zip(parts, hosts)):
+    kd_d, inv_d, al_d = [], [], []
+    for i, h in enumerate(hosts):
         dev = devs[i]
-        rows_d.append(_put(stats.lookup(a.hashes).astype(np.int32), dev))
-        docs_d.append(_put(np.repeat(
-            np.arange(a.n_docs, dtype=np.int32),
-            np.diff(a.doc_ptr).astype(np.int64),
-        ), dev))
-        tfs_d.append(_put(a.tfs.astype(np.int32), dev))
         k_doc, inv_norm, alive = builder.refresh_inputs(h, config, stats)
         kd_d.append(_put(builder._pad(k_doc, d_pad, 0, F32), dev))
         inv_d.append(_put(builder._pad(inv_norm, d_pad, 0, F32), dev))
         al_d.append(_put(builder._pad(alive, d_pad, False, bool), dev))
     ip_d = [_put(ipg[i], d) for i, d in enumerate(devs)]
     rs_d = [_put(rsg[i], d) for i, d in enumerate(devs)]
+    triples = (
+        (
+            _put(stats.lookup(a.hashes).astype(np.int32), dev),
+            _put(np.repeat(np.arange(a.n_docs, dtype=np.int32),
+                           np.diff(a.doc_ptr).astype(np.int64)), dev),
+            _put(a.tfs.astype(np.int32), dev),
+        )
+        for (_lo, a), dev in zip(parts, devs)
+    )
     pd, pt, pv, df_g = _spmd_build_step(
-        rows_d, docs_d, tfs_d, ip_d, rs_d, kd_d, inv_d, al_d,
+        triples, ip_d, rs_d, kd_d, inv_d, al_d,
         F32(config.scoring.k1 + 1.0),
         x_rows=x_rows, t_pad=t_pad, d_pad=d_pad, kind=config.scoring.kind,
         mesh_=mesh,
