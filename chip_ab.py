@@ -7,12 +7,16 @@ side, from one invocation on one card.
 Runs `python3 chip_smoke.py` in each TREE (a directory holding a checkout
 of the repository) in the order given, one after another on the same
 card, and prints per tree every kernel's ms, plain ms and launches from
-its "kernels" line, the serving q/s of each path and the card's name and
-power limit. Two versions are compared only within one such invocation, in
+its "kernels" line, the serving q/s of each path, the host's dispatch
+ms a batch (phase 4 and the sharded engine at each shard count), the
+card's busy share of phase 9's traced pass, the bench's q/s (best,
+median, the step alone), phase graphs' readings where the tree has
+them, and the card's name and power limit. Two versions are compared only within one such invocation, in
 turns (old, new, new, old), so that drift of the card or its host shows
 as a difference between the two runs of one tree. With --out the full
-results of every run (its main path, rerank path, further paths and
-kernels lines) are written to FILE as JSON. Fails if a run fails.
+results of every run (its main path, rerank path, further paths,
+sharded path, reference path, bench, graphs and kernels lines) are
+written to FILE as JSON. Fails if a run fails.
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ def run_tree(tree: str) -> dict:
     out["card"] = lines[-2]
     for line in lines:
         for tag, key in (("main path: ", "main"), ("rerank path: ", "rerank"),
-                         ("further paths: ", "paths")):
+                         ("further paths: ", "paths"),
+                         ("sharded path: ", "sharded"),
+                         ("reference path: ", "reference"),
+                         ("bench: ", "bench"), ("graphs: ", "graphs")):
             if line.startswith(tag):
                 out[key] = json.loads(line[len(tag):])
         if line.startswith('{"kernels"'):
@@ -52,11 +59,23 @@ def summary(r: dict) -> dict:
            "search_rerank": r["rerank"]["rerank_qps"]}
     for name, p in r["paths"].items():
         qps[name] = p["serving_qps"]
-    return {
+    out = {
         "tree": r["tree"], "card": r["card"], "seconds": r["seconds"],
         "kernel_ms": {k["name"]: k["ms"] for k in r["kernels"]},
         "serving_qps": qps,
+        "dispatch_ms": r["main"]["dispatch_ms"],
+        "sharded_dispatch_ms": {
+            n: sh["dispatch_ms"]
+            for n, sh in r["sharded"]["per_shards"].items()},
+        "busy_share": r["reference"]["trace"]["busy_share"],
+        "bench": {key: r["bench"]["json"][key]
+                  for key in ("value", "median", "step_qps")},
     }
+    if "graphs" in r:
+        g = r["graphs"]
+        out["graphs"] = {key: g[key] for key in (
+            "dispatch", "pool_bytes", "graphs", "captures")}
+    return out
 
 
 def main(argv) -> int:

@@ -64,14 +64,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. The main path at full size: a 1,000,000-doc bm25 index (200k-term
    Zipf vocabulary, 40 tokens per doc on average) built through
    SearchEngine.build, then search_stream over 4 batches of 16,384
-   raw-text queries (8 terms of df 64..32768 each), k=10, depth 2. The
+   raw-text queries (8 terms of df 64..32768 each), k=10, depth 2,
+   through the engine's step graphs (engine/step_graph.py; warmup
+   captured the batch's graph). The
    build's peak device bytes above its start must stay within the build
    rule: the resident index + 12 B x the triples' nnz_cap
    (builder.shape_bucket of the postings) + 512 MiB of chunk workspace;
    the segment is then built once more with the peak read around each
    stage (device_pack, device_align_planes, device_materialize_vals),
    and the log line prints the three. The
-   kernel's launch count over that run must be > 0, and per batch a
+   kernel's launch count over that run must equal its buckets (one
+   launch a bucket and batch, as the eager step counts them; the
+   replays add each graph's captured counts), the graph pool's bytes
+   after the serving passes may not exceed the graphs times the eager
+   step's peak above its start on the last batch (the segments of a
+   fresh memory pool it runs in), and per batch a
    seeded sample of >= 1,024 queries covering every bucket cell must
    equal the plain scorer on the card. Serving q/s is the median of 5
    more passes. One batch's buckets are then compared in full, kernel
@@ -105,6 +112,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    workspace buckets, and per path (and for phase 4's run) the median
    host-clock ms a batch spends in the engine's dispatch (planning, H2D,
    enqueue) and collect (D2H wait, assembly, merges).
+   Phase graphs, on phase 4's index and batches after phase 6: for
+   fused at k 10 (B1) and 64 (B2t), fused_dv (B5), xla_rank (B3) and
+   split 128 (B1 dlim), every batch's key seen, then all 4 batches
+   dispatched through their graphs at once (depth 8), each output held
+   until the last is dispatched and then equal bit for bit to the eager
+   _batch_step on the same inputs; with a sleep of max(50 ms, 4 x a
+   warm dispatch) on the stream, a warm _dispatch must return while
+   the stream is still busy. Reported: the captures and each capture's
+   ms, the graphs and the pool's bytes, the host ms of a warm dispatch's
+   planning and enqueue (prof.phase dispatch.plan, dispatch.enqueue)
+   beside the same enqueue run eagerly; phase 8 adds both gates for the
+   sharded engine at each shard count, and the "graphs:" line (printed
+   after the bench's) phase 9's busy share and phase 10's q/s.
 7. The lifecycle path at full size, on phase 4's corpus, index and
    batches (phase_lifecycle): a streaming build of the corpus in 8
    batches of 125,000, which the default policy compacts into one
@@ -146,7 +166,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    queries, then save and DistributedSearchEngine.load on 2 shards
    (elastic reshard), equal to the saved engine; the CLI's `index
    --shards 2` on a 2,000-doc corpus and its search and serve on the
-   card, whose hits equal the library's. fused_search,
+   card, whose hits equal the library's. At each shard count the
+   sharded step's graphs hold phase graphs' two gates (bits in flight,
+   no wait). fused_search,
    fused_search_large_k, fused_search_split, rank_only and rerank_dots
    must each have launched on the sharded path. Reported per shard
    count: build seconds and peak bytes above the start, resident bytes,
@@ -170,9 +192,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    after a delete + add. entry() on the card must launch the rank-only
    kernel and equal the same step on CPU tensors; dryrun_multichip(8)
    must pass (its rankings equal the oracle's). search must record
-   exactly the phases search.analyze and search.score, and a trace
+   exactly the phases search.analyze, search.score, dispatch.plan and
+   dispatch.enqueue, and a trace
    (utils/prof.py trace, traces/chip_smoke_trace.json) of one
-   search_stream pass must hold the fused kernel's events. Reported:
+   search_stream pass, after one untraced pass that captures every
+   batch's graph, must hold the fused kernel's events. Reported:
    the groups, the step's q/s, the timed group's ms and bound, and the
    card's busy share of the traced window (the union of its kernels
    over the span of all events), with the kernels' time by name, the
@@ -199,7 +223,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each leg's seconds, peak device bytes and kernel launches.
 
 stdout ends with the lifecycle path's JSON line, the sharded path's,
-the reference path's, the bench's ("bench: ..."), the kernels' JSON
+the reference path's, the bench's ("bench: ..."), phase graphs'
+("graphs: ..."), the kernels' JSON
 line (the rank-only kernel's launches: the xla_rank path's and phase
 9's packed step's), the card's name and power limit, and {"ok": true,
 "device": {...}} as the last line. Progress goes
@@ -1344,7 +1369,8 @@ def phase_oracle(device) -> int:
 # ------------------------------------------------------------ phase 4
 def bucket_calls(captured):
     """Per bucket of one captured _batch_step: (segment, plan tables,
-    the kernel's keyword arguments, dlim or None, dv plane or None)."""
+    the kernel's keyword arguments, dlim or None, dv plane or None).
+    Fails when the step has no bucket."""
     import torch
 
     from document_search_engine_tpu_torch.ops.fused import (
@@ -1377,6 +1403,8 @@ def bucket_calls(captured):
                 n_docs=n_docs, scale=kw["scale"], clip=kw["clip"], r_c=r_c,
                 key_bits=key_bits_for(s, n_docs),
             ), dlim, None if dv_planes is None else dv_planes[si]))
+    if not calls:
+        raise AssertionError("the captured step has no bucket")
     return calls
 
 
@@ -1567,24 +1595,28 @@ def rank_bound(packed, k):
 
 def capture_batch(eng, batch, k):
     """Runs one batch through eng and returns its _batch_step's
-    arguments."""
-    from document_search_engine_tpu_torch.engine import engine as engine_mod
+    arguments ({"args", "kw"}). On the card the engine replays the
+    step's graph and calls no _batch_step, so they come from its record
+    of the batch's step (eng._last_step: the _batch_step partial and
+    the host inputs, put on the card here)."""
+    import torch
 
-    captured = {}
-    step = engine_mod._batch_step
+    eng._collect(dispatch(eng, batch, k))
+    step, inputs = eng._last_step
+    ins = [torch.from_numpy(a).to(eng.device) for a in inputs]
+    kw = dict(step.keywords)
+    if len(ins) == 3:
+        kw["cols_cat"] = ins[2]
+    return {"args": (*step.args, ins[0], ins[1]), "kw": kw}
 
-    def capture_step(*a, **kw):
-        captured["args"], captured["kw"] = a, kw
-        return step(*a, **kw)
 
-    engine_mod._batch_step = capture_step
-    try:
+def dispatch(eng, batch, k):
+    """eng._dispatch of one raw-text batch (either engine)."""
+    if hasattr(eng, "segments"):
         slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
             batch, eng.stats)
-        eng._collect(eng._dispatch(slot_h, coeff, k, rows_g, found_g))
-    finally:
-        engine_mod._batch_step = step
-    return captured
+        return eng._dispatch(slot_h, coeff, k, rows_g, found_g)
+    return eng._dispatch(batch, k)
 
 
 def run_statistics(d_key, ci, granule, n_docs, chunk_elems=16 << 20):
@@ -1940,6 +1972,12 @@ def phase_main(device, diffs, sample=1024, seed=0):
         f"{res['collect_ms']:.2f}")
     if res["launches"] <= 0:
         raise AssertionError("the main path launched no fused_search kernel")
+    # the graphs' replays count what the eager step launches: one a
+    # bucket and batch
+    res["buckets"] = sum(len(c) for f in rec["futs"] for c in f[1])
+    if res["launches"] != res["buckets"]:
+        raise AssertionError(
+            f"{res['launches']} fused launches for {res['buckets']} buckets")
     # each pass is a short window that includes the depth-2 pipeline's
     # fill and drain: report the median and the spread over several
     qps = []
@@ -1953,6 +1991,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     res["serving_qps_passes"] = qps
     log(f"search_stream, {SERVING_PASSES} more passes: median "
         f"{res['serving_qps']:.1f} q/s, range {min(qps):.1f}..{max(qps):.1f}")
+    graph_pool(eng, res)
     hits = sum(int((ids[:, 0] >= 0).sum()) for ids, _ in outs)
     if hits < nq * n_batches // 2:
         raise AssertionError(f"only {hits} queries found any document")
@@ -2277,6 +2316,206 @@ def phase_paths(eng, batches, base_outs, diffs):
                 if b["region"] == "per query")
         res[name] = r
     eng.scorer, eng.split_rows = None, None
+    return res
+
+
+# ------------------------------------------------------------ graphs
+# the paths whose step graphs the bit gate holds against the eager step,
+# on phase 4's index and batches: (scorer, split_rows, k)
+GRAPH_PATHS = (
+    ("fused", None, K), ("fused", None, 64), ("fused_dv", None, K),
+    ("xla_rank", None, K), ("fused", 128, K),
+)
+SLEEP_MS = 50  # the no-wait gate's sleep on the stream, at least
+
+
+def graph_bits(eng, batches, k, what):
+    """Gate 1 of phase graphs for one path: every batch's key seen
+    (warm passes until one captures nothing), then all the batches
+    dispatched through their graphs at once (depth 8 holds the 4 of
+    them in flight), and each output, held until the last is
+    dispatched, equal bit for bit to the eager step called directly on
+    the same inputs (eng._last_step)."""
+    import torch
+
+    g = eng._graphs
+    if g is None:
+        raise AssertionError(f"{what}: the engine keeps no step graphs")
+    for _ in range(3):
+        c0 = g.captures
+        for b in batches:
+            eng._collect(dispatch(eng, b, k))
+        if g.captures == c0:
+            break
+    else:
+        raise AssertionError(f"{what}: still capturing after 3 passes")
+    r0, c0 = g.replays, g.captures
+    futs, steps = [], []
+    for b in batches:
+        futs.append(dispatch(eng, b, k))
+        steps.append(eng._last_step)
+    if g.replays - r0 != len(batches) or g.captures != c0:
+        raise AssertionError(
+            f"{what}: {g.replays - r0} replays and {g.captures - c0} "
+            f"captures for {len(batches)} warm batches")
+    for i, (fut, (step, inputs)) in enumerate(zip(futs, steps)):
+        want = step(*[torch.from_numpy(a).to(g.device) for a in inputs])
+        if not torch.equal(fut[0], want):
+            raise AssertionError(
+                f"{what}: batch {i}: the graph's output differs from the "
+                "eager step's")
+        eng._collect(fut)
+    return {"replays": len(batches), "graphs": len(g),
+            "captures": g.captures}
+
+
+def sleep_cycles_per_ms():
+    """torch.cuda._sleep's cycles a millisecond on this card (events
+    around one long sleep)."""
+    import torch
+
+    torch.cuda._sleep(1000)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    torch.cuda._sleep(10**7)
+    ev1.record()
+    torch.cuda.synchronize()
+    return 1e7 / ev0.elapsed_time(ev1)
+
+
+def graph_no_wait(eng, batch, k, what, cycles_per_ms):
+    """Gate 2 of phase graphs: with a sleep of max(SLEEP_MS, 4 x a warm
+    dispatch) enqueued on the stream, a warm _dispatch must return while
+    the stream is still busy."""
+    import torch
+
+    eng._collect(dispatch(eng, batch, k))
+    t0 = time.perf_counter()
+    fut = dispatch(eng, batch, k)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    eng._collect(fut)
+    sleep_ms = max(SLEEP_MS, 4 * warm_ms)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+    t0 = time.perf_counter()
+    fut = dispatch(eng, batch, k)
+    ms = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    eng._collect(fut)
+    if not busy:
+        raise AssertionError(
+            f"{what}: _dispatch returned ({ms:.2f} ms) after the stream "
+            f"drained a {sleep_ms:.1f} ms sleep: it waited on the card")
+    return {"sleep_ms": sleep_ms, "dispatch_ms": ms}
+
+
+def graph_pool(eng, res):
+    """Gate 3 of phase graphs, after phase 4's serving: the engine's
+    graph pool bytes may not exceed its graphs times the eager step's
+    peak above its start on the last batch's inputs. Both sides are a
+    private pool's segments (the eager step's run in a fresh
+    torch.cuda.MemPool), so the allocator's rounding counts alike; the
+    eager step's allocated peak is logged beside them."""
+    import torch
+
+    from document_search_engine_tpu_torch.engine.step_graph import (
+        pool_bytes,
+    )
+
+    g = eng._graphs
+    step, inputs = eng._last_step
+    ins = [torch.from_numpy(a).to(g.device) for a in inputs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    fresh = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(fresh):
+        out = step(*ins)
+        torch.cuda.synchronize()
+        res["eager_step_pool_bytes"] = pool_bytes(fresh.id, g.device)
+    res["eager_step_peak_bytes"] = torch.cuda.max_memory_allocated() - m0
+    del out, ins, fresh
+    res["graphs"] = len(g)
+    res["graph_pool_bytes"] = g.pool_bytes()
+    bound = len(g) * res["eager_step_pool_bytes"]
+    if res["graph_pool_bytes"] > bound:
+        raise AssertionError(
+            f"graph pool {res['graph_pool_bytes']} B > {len(g)} graphs x "
+            f"the eager step's {res['eager_step_pool_bytes']} B")
+    log(f"graphs: {len(g)} after phase 4's serving, pool "
+        f"{res['graph_pool_bytes']} B <= {len(g)} x the eager step's "
+        f"{res['eager_step_pool_bytes']} B above its start (allocated "
+        f"peak {res['eager_step_peak_bytes']} B)")
+
+
+def dispatch_split(eng, batches, k):
+    """Host ms a warm _dispatch spends planning and enqueueing
+    (prof.phase dispatch.plan, dispatch.enqueue), the median of one
+    dispatch of each batch, and the same enqueue run eagerly on the last
+    batch (pinned staging, non-blocking copies, the eager step; host
+    clock, no sync), the median of 3."""
+    import torch
+
+    from document_search_engine_tpu_torch.utils import prof
+
+    plan, enq = [], []
+    for b in batches:
+        prof.reset()
+        eng._collect(dispatch(eng, b, k))
+        ph = json.loads(prof.metrics_json())["phases_s"]
+        plan.append(ph["dispatch.plan"] * 1e3)
+        enq.append(ph["dispatch.enqueue"] * 1e3)
+    prof.reset()
+    step, inputs = eng._last_step
+    eager = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ins = [torch.from_numpy(a).pin_memory().to(eng._graphs.device,
+                                                    non_blocking=True)
+               for a in inputs]
+        out = step(*ins)
+        eager.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        del out, ins
+    return {"plan_ms": float(np.median(plan)), "plan_ms_each": plan,
+            "enqueue_ms": float(np.median(enq)), "enqueue_ms_each": enq,
+            "eager_enqueue_ms": float(np.median(eager)),
+            "eager_enqueue_ms_each": eager}
+
+
+def phase_graphs(eng, batches):
+    """Phase graphs on phase 4's engine and batches (after phase 6):
+    for each of GRAPH_PATHS the bit gate (graph_bits); the no-wait gate
+    (graph_no_wait) and the host's planning and enqueue a batch
+    (dispatch_split) at phase 4's path. Phase 4 gated the pool
+    (graph_pool); phase 8 adds the sharded engines' gates, main() the
+    busy share and the bench's q/s. Returns the results."""
+    res = {"paths": {}, "cycles_per_ms": sleep_cycles_per_ms()}
+    for scorer, split, k in GRAPH_PATHS:
+        what = f"{scorer} split {split} k {k}"
+        eng.scorer, eng.split_rows = scorer, split
+        eng.preplan(batches, k=k)
+        res["paths"][what] = graph_bits(eng, batches, k, what)
+        log(f"graphs, {what}: {len(batches)} batches in flight through "
+            "their graphs == the eager step, bit for bit")
+    eng.scorer, eng.split_rows = None, None
+    res["no_wait"] = graph_no_wait(eng, batches[0], K, "SearchEngine",
+                                   res["cycles_per_ms"])
+    res["dispatch"] = dispatch_split(eng, batches, K)
+    g = eng._graphs
+    res.update(captures=g.captures, replays=g.replays, graphs=len(g),
+               capture_ms=list(g.capture_ms), pool_bytes=g.pool_bytes())
+    d = res["dispatch"]
+    log(f"graphs: a warm dispatch plans {d['plan_ms']:.2f} ms and "
+        f"enqueues {d['enqueue_ms']:.3f} ms (eager enqueue "
+        f"{d['eager_enqueue_ms']:.3f} ms); returned in "
+        f"{res['no_wait']['dispatch_ms']:.2f} ms with a "
+        f"{res['no_wait']['sleep_ms']:.1f} ms sleep still on the stream; "
+        f"{g.captures} captures (median "
+        f"{float(np.median(g.capture_ms)):.1f} ms), {len(g)} graphs, pool "
+        f"{res['pool_bytes']} B")
     return res
 
 
@@ -2654,7 +2893,8 @@ def timed_step(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
+def phase_sharded(eng, batches, base_outs, rerank_outs, texts,
+                  cycles_per_ms, seed=11):
     """Phase 8: the sharded engine at full size, on phase 4's corpus and
     query batches, every shard on the one card. Step 1, for each of
     SHARD_COUNTS: a DistributedSearchEngine built from the corpus whose
@@ -2726,6 +2966,10 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
         r["serving_qps_counted_pass"] = nq / dt
         r["serving_qps"], r["serving_qps_passes"] = serve_timed(
             deng, batches, SHARDED_PASSES)
+        r["graph_bits"] = graph_bits(deng, batches, K, f"{n} shards")
+        r["graph_no_wait"] = graph_no_wait(
+            deng, batches[0], K, f"{n} shards", cycles_per_ms)
+        r["graph_dispatch"] = dispatch_split(deng, batches, K)
         res["per_shards"][str(n)] = r
         log(f"{n} shards: build {r['build_s']:.2f}s (peak "
             f"{r['build_peak_extra_bytes']} B above the start, gate "
@@ -2734,7 +2978,14 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts, seed=11):
             f"{idx.d_pad}); all {nq} results == phase 4's; "
             f"{r['launches']} fused launches ({n} x {sum(buckets)} buckets)"
             f"; median {r['serving_qps']:.1f} q/s; host ms a batch: "
-            f"dispatch {r['dispatch_ms']:.2f}, collect {r['collect_ms']:.2f}")
+            f"dispatch {r['dispatch_ms']:.2f}, collect {r['collect_ms']:.2f}"
+            f"; its {len(batches)} batches in flight == the eager step bit "
+            f"for bit; dispatch returned in "
+            f"{r['graph_no_wait']['dispatch_ms']:.2f} ms with the stream "
+            f"still busy; a warm dispatch plans "
+            f"{r['graph_dispatch']['plan_ms']:.2f} ms, enqueues "
+            f"{r['graph_dispatch']['enqueue_ms']:.3f} ms (eager "
+            f"{r['graph_dispatch']['eager_enqueue_ms']:.3f} ms)")
         if n == SHARDED_AT:
             keep = deng
         del deng
@@ -3191,10 +3442,11 @@ def phase_entry(res):
 
 def phase_prof(eng, batches, res):
     """Step 5 of phase 9: the engine's phase timers over one search, and
-    one search_stream pass of the batches under prof.trace: the trace
-    must hold the fused kernel's events; the card's busy share of the
-    traced window (the union of its kernels over the span of all events)
-    is reported."""
+    one search_stream pass of the batches under prof.trace, after one
+    pass untraced (every batch's graph captured: a steady window): the
+    trace must hold the fused kernel's events; the card's busy share of
+    the traced window (the union of its kernels over the span of all
+    events) is reported."""
     import torch
 
     from document_search_engine_tpu_torch.utils import prof
@@ -3202,9 +3454,14 @@ def phase_prof(eng, batches, res):
     prof.reset()
     eng.search(batches[0], k=K)
     phases = json.loads(prof.metrics_json())["phases_s"]
-    if set(phases) != {"search.analyze", "search.score"}:
+    # on the card the dispatch's planning and enqueue (the step graph's
+    # replay) are phases of their own
+    if set(phases) != {"search.analyze", "search.score", "dispatch.plan",
+                       "dispatch.enqueue"}:
         raise AssertionError(f"search recorded phases {sorted(phases)}")
     res["search_phases_s"] = phases
+    # a steady window: every batch's step graph captured before the trace
+    serve_all(eng, batches)
     out_dir = os.path.join(REPO, "traces")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "chip_smoke_trace.json")
@@ -3530,16 +3787,30 @@ def main() -> int:
     print("rerank path: " + json.dumps(rr), flush=True)
     pp = phase_paths(eng, batches, outs, diffs)
     print("further paths: " + json.dumps(pp), flush=True)
+    gr = phase_graphs(eng, batches)
+    gr["phase4_pool"] = {key: res[key] for key in (
+        "graphs", "graph_pool_bytes", "eager_step_pool_bytes",
+        "eager_step_peak_bytes")}
     lc = phase_lifecycle(eng, batches, outs, texts)
     print("lifecycle path: " + json.dumps(lc), flush=True)
-    sh = phase_sharded(eng, batches, outs, rerank_outs, texts)
+    sh = phase_sharded(eng, batches, outs, rerank_outs, texts,
+                       gr["cycles_per_ms"])
     print("sharded path: " + json.dumps(sh), flush=True)
+    gr["sharded"] = {
+        n: {"bits": r["graph_bits"], "no_wait": r["graph_no_wait"],
+            "dispatch": r["graph_dispatch"], "dispatch_ms": r["dispatch_ms"]}
+        for n, r in sh["per_shards"].items()}
     ref = phase_reference(device, texts, batches, outs, diffs)
     del texts
     print("reference path: " + json.dumps(ref), flush=True)
     # the bench subprocess gets the card without phase 4's engine
     del eng, batches, outs, rerank_outs
-    print("bench: " + json.dumps(phase_bench(device)), flush=True)
+    bn = phase_bench(device)
+    print("bench: " + json.dumps(bn), flush=True)
+    gr["busy_share"] = ref["trace"]["busy_share"]
+    gr["bench"] = {key: bn["json"][key]
+                   for key in ("value", "median", "step_qps")}
+    print("graphs: " + json.dumps(gr), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],

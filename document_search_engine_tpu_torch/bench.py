@@ -26,8 +26,9 @@ kernel launches):
 the host build of a 20,000-doc corpus (`BENCH_BUILD`, with the device
 build under `BENCH_BUILD_DEVICE`); the primary serving passes; serving
 without text analysis (pre-analyzed slots through `_dispatch` and
-`_collect`); the device step alone (`step_qps`: one captured
-`_batch_step` replayed with a depth-N window); the 1-shard sharded
+`_collect`); the device step alone (`step_qps`: batch 0's step as the
+engine runs it, on the card its CUDA graph, replayed with a depth-N
+window and a D2H each); the 1-shard sharded
 engine wrapping the same resident planes, in windows paired with the
 single engine (`BENCH_SHARDS`); the device CSR pack of device-drawn
 triples at the index's scale (`BENCH_PACK`); an 8M-doc index
@@ -74,7 +75,6 @@ import numpy as np
 import torch
 
 from .config import IndexConfig, ScoringConfig
-from .engine import engine as engine_mod
 from .engine.engine import SearchEngine
 from .index import builder
 from .index.csr import GlobalStats, SegmentDevice, SegmentHost, round_up
@@ -514,29 +514,20 @@ def run_wo_analysis(eng, pre, iters, k, depth, nq):
 
 def capture_step(eng, pre0, k):
     """Dispatch one pre-analyzed batch through the public path and keep
-    the `_batch_step` call it made. Returns (step, args, kw, meta):
-    step(*args, **kw) replays the batch's device work, and
-    eng._collect((out, *meta)) assembles its (ids, scores)."""
-    captured = {}
-    real_step = engine_mod._batch_step
-
-    def capturing(*args, **kw):
-        captured["args"], captured["kw"] = args, kw
-        return real_step(*args, **kw)
-
-    engine_mod._batch_step = capturing
-    try:
-        fut = eng._dispatch(*pre0, k)
-    finally:
-        engine_mod._batch_step = real_step
+    its device step as the engine runs it (engine.py _step_replayer: on
+    the card a replay of the batch's CUDA graph, with its copy-out).
+    Returns (step, args, kw, meta): step(*args, **kw) runs the batch's
+    device work again into a fresh output, and eng._collect((out,
+    *meta)) assembles its (ids, scores)."""
+    fut = eng._dispatch(*pre0, k)
     eng._collect(fut)
-    return real_step, captured["args"], captured["kw"], fut[1:]
+    return eng._step_replayer(), (), {}, fut[1:]
 
 
 def step_only_qps(eng, pre0, k, iters, depth, nq, label):
-    """Device-step-only q/s: one batch's captured `_batch_step` replayed
-    `iters` times with a depth-N window, each output read to the host.
-    Returns (q/s, the last replay's (ids, scores))."""
+    """Device-step-only q/s: one batch's step replayed `iters` times
+    with a depth-N window, each output read to the host. Returns (q/s,
+    the last replay's (ids, scores))."""
     step, args, kw, meta = capture_step(eng, pre0, k)
     t0 = time.perf_counter()
     inflight = deque()

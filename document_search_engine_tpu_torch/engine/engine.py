@@ -6,7 +6,10 @@ policy, the stats and value refresh, save/load (index/checkpoint.py),
 search, search_stream, preplan and warmup, with the batch step
 (`_batch_step`) running every (segment x bucket) sub-call of a batch and
 producing one stacked int32 output, so a batch costs one device->host
-read.
+read. On the card the step is the JAX package's jitted program's
+counterpart: one CUDA graph per plan-layout key (engine/step_graph.py),
+captured on a key's first batch and replayed for every later one, its
+inputs copied from pinned memory without waiting on the card.
 
 Also the hybrid rerank path: `search_rerank` and its device-resident
 embedding table (`_device_embeddings`, ops/rerank.py).
@@ -31,12 +34,15 @@ and merged per query by (score desc, gid asc) on the host.
 
 Every mutation (add, delete, compact, streaming build, load) re-merges
 the global stats and drops every per-segment device cache (row tables,
-embeddings, dv planes, doc-quantile tables), so no cache keeps a
-replaced plane resident.
+embeddings, dv planes, doc-quantile tables) and every step graph, so no
+cache keeps a replaced plane resident.
 
 Phase timers (utils/prof.py), where the reference records them:
 `build.analyze` around add_docs' text analysis, `search.analyze` and
 `search.score` around search's analysis and its dispatch and collect.
+On the card `_dispatch` also records `dispatch.plan` (slot slicing, row
+lookup, planning, layout cells, array fill) and `dispatch.enqueue`
+(staging, copies, the graph's replay or capture, the copy-out).
 """
 from __future__ import annotations
 
@@ -59,6 +65,13 @@ from ..ops.schedule import (
 from ..oracle import spec
 from ..utils import prof
 from .query import QueryFrontend, segment_rows
+from .step_graph import (
+    StepGraphs,
+    dispatch_span,
+    resident_key,
+    run_step,
+    step_key,
+)
 
 F32 = np.float32
 SCORER_MODES = ("fused", "fused_dv", "xla", "xla_rank")
@@ -74,6 +87,8 @@ def _batch_step(
     segments,  # list of (n_docs, doc_base, SegmentDevice)
     rows_cat: torch.Tensor,  # (sum of bucket bq + tail, S) i32 term rows
     cbits_cat: torch.Tensor,  # (sum of bucket bq, S) i32 coefficient bits
+    cols_cat=None,  # (sum of bucket bq, 2) i32 piece columns (split)
+    *,
     plan,  # per segment (n_docs, s, ((n_blocks, block, bq, r_c), ...))
     k: int,
     scale: float,
@@ -81,7 +96,6 @@ def _batch_step(
     mode: str,  # "fused" | "fused_dv" | "xla" | "xla_rank"
     n_real: int,  # readback-trim gather size
     dv_planes=None,  # per segment (X+8, 256) dv plane ("fused_dv")
-    cols_cat=None,  # (sum of bucket bq, 2) i32 piece columns (split)
     offs_devs=None,  # per segment (T, P+1) i32 doc-quantile tables
     split_p: int = 0,  # quantile columns P (0 = splitting off)
 ):
@@ -91,7 +105,8 @@ def _batch_step(
     where(v > 0, dloc + doc_base, -1) applies. Returns ONE (n_real, 2k)
     int32 tensor — per-bucket [vals | gids] stacked in plan order, with
     the pow-2 bq padding rows dropped by a gather whose indices ride in
-    rows_cat's tail (the same host->device copy).
+    rows_cat's tail (the same host->device copy). It reads no tensor's
+    value on the host, so it captures into a CUDA graph whole.
 
     With split_p, plan rows are doc-range pieces: their record ranges
     come from the resident quantile tables and the kernel limits each
@@ -330,6 +345,11 @@ class SearchEngine:
         # exactly. None = off (the reference's default). Only the fused
         # scorer with one block family takes it (_split_active).
         self.split_rows: int | None = None
+        # the compiled batch step on the card (engine/step_graph.py); the
+        # CPU runs the step eagerly
+        self._graphs = (
+            StepGraphs(self.device) if self.device.type == "cuda" else None
+        )
         self._drop_caches()
 
     # ------------------------------------------------------------- build
@@ -407,6 +427,9 @@ class SearchEngine:
         self._emb_cache: dict = {}  # dim -> (emb, ssq), _device_embeddings
         self._dv_cache: dict = {}  # segment -> (doc, val, dv), _dv_planes
         self._quant_cache: dict = {}  # segment -> (doc, offs_h, offs_d)
+        self._last_step = None  # (step, host inputs) of the last batch
+        if self._graphs is not None:
+            self._graphs.clear()
 
     def load_segments(self, segments) -> None:
         """Serve already-built segments [(SegmentHost, SegmentDevice)]
@@ -831,112 +854,135 @@ class SearchEngine:
         table is the global vocabulary), splitting into doc-range pieces
         when on, bucketing, and one stacked (rows, coefficient bits)
         array pair (plus the pieces' quantile columns); those are the
-        only host->device copies. Returns the in-flight device output
-        plus assembly metadata, so callers can pipeline batches."""
+        only host->device copies, from pinned memory on the card, where
+        the step is the plan's CUDA graph (engine/step_graph.py).
+        Returns the in-flight device output plus assembly metadata, so
+        callers can pipeline batches: nothing here waits on the card."""
         mode = self._mode_for(k)
         self._check_request(k)
-        n_slots = slot_h.shape[1]
-        slot_h, coeff = slice_active_slots(slot_h, coeff)
-        nq, s = coeff.shape
-        if rows_g is not None and s != n_slots:
-            rows_g, found_g = rows_g[:, :s], found_g[:, :s]
+        with dispatch_span(self._graphs, "dispatch.plan"):
+            n_slots = slot_h.shape[1]
+            slot_h, coeff = slice_active_slots(slot_h, coeff)
+            nq, s = coeff.shape
+            if rows_g is not None and s != n_slots:
+                rows_g, found_g = rows_g[:, :s], found_g[:, :s]
+            families = self._families(mode)
+            split = self._split_active(mode, k, families)
+            p = builder.SPLIT_QUANTILES
+            plan = []  # per seg (n_docs, s, ((nb, blk, bq, rc), ...))
+            slots = []  # per segment: its plan-layout key
+            idx_map = []  # per segment: list of (plan-row indices, bq)
+            piece_maps = []  # per segment: None | (qidx, pno, mmax, rows)
+            r_subs, a_subs, c_subs = [], [], []
+            for si, host, rows, found, a_seg in self._segment_inputs(
+                slot_h, coeff, rows_g, found_g
+            ):
+                rows_p, a_p, cols, qidx, pno, natural = self._segment_plan(
+                    si, host, self.segments[si][1], rows, found, a_seg,
+                    families, mode, k,
+                )
+                n_rows_p = rows_p.shape[0]
+                if self.plan_cache is not None:
+                    key = self._plan_key(si, host, s, k, mode, families)
+                    cells = self.plan_cache.canonicalize(
+                        key, natural, n_rows_p)
+                    slots.append(key)
+                else:
+                    cells = [
+                        (idx, nb, blk, rc, _pow2_at_least(len(idx)))
+                        for idx, nb, blk, rc in natural
+                    ]
+                    slots.append(None)
+                buckets, idxs = [], []
+                for idx, n_blocks, block, r_c, bq in cells:
+                    r_sub = np.zeros((bq, s), np.int32)
+                    a_sub = np.zeros((bq, s), F32)
+                    r_sub[: len(idx)] = rows_p[idx]
+                    a_sub[: len(idx)] = a_p[idx]
+                    r_subs.append(r_sub)
+                    a_subs.append(a_sub)
+                    if split:
+                        # padding rows and unsplit (empty) segments take
+                        # the whole-row piece (0, P): cols stay aligned
+                        # with the bucket offsets across all segments
+                        c_sub = np.zeros((bq, 2), np.int32)
+                        c_sub[:, 1] = p
+                        if cols is not None:
+                            c_sub[: len(idx)] = cols[idx]
+                        c_subs.append(c_sub)
+                    buckets.append((n_blocks, block, bq, r_c))
+                    idxs.append((idx, bq))
+                plan.append((host.n_docs, s, tuple(buckets)))
+                idx_map.append(idxs)
+                piece_maps.append(
+                    None if cols is None
+                    else (qidx, pno, int(pno.max()) + 1 if len(pno) else 1,
+                          n_rows_p)
+                )
+            # readback trim: the real (non-pad) output rows are gathered
+            # on the device before the single device->host read; the
+            # gather index rides in rows_cat's tail
+            offs = []
+            off = 0
+            for idxs in idx_map:
+                for idx, bq in idxs:
+                    offs.append(off + np.arange(len(idx), dtype=np.int32))
+                    off += bq
+            idx_flat = np.concatenate(offs)
+            n_real = len(idx_flat)
+            if split:
+                # piece counts vary with traffic; round the gather size
+                # up so the step's keys stay few (the JAX package's rule:
+                # the pad gathers row 0, rows past the consumed range
+                # that _collect never reads)
+                n_real = -(-n_real // 256) * 256
+            n_extra = -(-n_real // s)
+            tail = np.zeros((n_extra, s), np.int32)
+            tail.reshape(-1)[: len(idx_flat)] = idx_flat
+            r_all = np.concatenate(r_subs + [tail], axis=0)
+            inputs = (r_all, np.concatenate(a_subs, axis=0).view(np.int32))
+            if split:
+                inputs += (np.concatenate(c_subs),)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(
             F32(int(spec.quant_clip_max(self.config.max_query_terms)))
         )
-        families = self._families(mode)
-        split = self._split_active(mode, k, families)
-        p = builder.SPLIT_QUANTILES
-        plan = []  # per seg (n_docs, s, ((nb, blk, bq, rc), ...))
-        idx_map = []  # per segment: list of (plan-row indices, bq)
-        piece_maps = []  # per segment: None | (qidx, pno, mmax, n_rows_p)
-        r_subs, a_subs, c_subs = [], [], []
-        for si, host, rows, found, a_seg in self._segment_inputs(
-            slot_h, coeff, rows_g, found_g
-        ):
-            rows_p, a_p, cols, qidx, pno, natural = self._segment_plan(
-                si, host, self.segments[si][1], rows, found, a_seg,
-                families, mode, k,
+        with dispatch_span(self._graphs, "dispatch.enqueue"):
+            segs = [(h.n_docs, h.doc_base, d) for h, d in self.segments]
+            dv = self._dv_planes() if mode == "fused_dv" else None
+            quant = (
+                [self._doc_quantiles(si, h, d)[1]
+                 for si, (h, d) in enumerate(self.segments)]
+                if split else None
             )
-            n_rows_p = rows_p.shape[0]
-            if self.plan_cache is not None:
-                key = self._plan_key(si, host, s, k, mode, families)
-                cells = self.plan_cache.canonicalize(key, natural, n_rows_p)
-            else:
-                cells = [
-                    (idx, nb, blk, rc, _pow2_at_least(len(idx)))
-                    for idx, nb, blk, rc in natural
-                ]
-            buckets, idxs = [], []
-            for idx, n_blocks, block, r_c, bq in cells:
-                r_sub = np.zeros((bq, s), np.int32)
-                a_sub = np.zeros((bq, s), F32)
-                r_sub[: len(idx)] = rows_p[idx]
-                a_sub[: len(idx)] = a_p[idx]
-                r_subs.append(r_sub)
-                a_subs.append(a_sub)
-                if split:
-                    # padding rows and unsplit (empty) segments take the
-                    # whole-row piece (0, P): cols stay aligned with the
-                    # bucket offsets across all segments
-                    c_sub = np.zeros((bq, 2), np.int32)
-                    c_sub[:, 1] = p
-                    if cols is not None:
-                        c_sub[: len(idx)] = cols[idx]
-                    c_subs.append(c_sub)
-                buckets.append((n_blocks, block, bq, r_c))
-                idxs.append((idx, bq))
-            plan.append((host.n_docs, s, tuple(buckets)))
-            idx_map.append(idxs)
-            piece_maps.append(
-                None if cols is None
-                else (qidx, pno, int(pno.max()) + 1 if len(pno) else 1,
-                      n_rows_p)
+            split_p = p if split else 0
+            plan = tuple(plan)
+            step = partial(
+                _batch_step, segs, plan=plan, k=k, scale=scale, clip=clip,
+                mode=mode, n_real=n_real, dv_planes=dv, offs_devs=quant,
+                split_p=split_p,
             )
-        # readback trim: the real (non-pad) output rows are gathered on
-        # the device before the single device->host read; the gather
-        # index rides in rows_cat's tail
-        offs = []
-        off = 0
-        for idxs in idx_map:
-            for idx, bq in idxs:
-                offs.append(off + np.arange(len(idx), dtype=np.int32))
-                off += bq
-        idx_flat = np.concatenate(offs)
-        n_real = len(idx_flat)
-        r_all = np.concatenate(r_subs, axis=0)
-        n_extra = -(-n_real // s)
-        tail = np.zeros(n_extra * s, np.int32)
-        tail[:n_real] = idx_flat
-        r_all = np.concatenate([r_all, tail.reshape(n_extra, s)], axis=0)
-        dev = self.device
-        split_kw = {}
-        if split:
-            split_kw = dict(
-                cols_cat=torch.from_numpy(np.concatenate(c_subs)).to(dev),
-                offs_devs=[
-                    self._doc_quantiles(si, h, d)[1]
-                    for si, (h, d) in enumerate(self.segments)
-                ],
-                split_p=p,
+            resident = resident_key(
+                [t for _n, _b, d in segs
+                 for t in (d.post_doc, d.post_val, d.indptr, d.row_start)]
+                + (dv or []) + (quant or []),
+                [b for _n, b, _d in segs],
             )
-        out = _batch_step(
-            [(h.n_docs, h.doc_base, d) for h, d in self.segments],
-            torch.from_numpy(r_all).to(dev),
-            torch.from_numpy(np.concatenate(a_subs, axis=0).view(np.int32)).to(
-                dev
-            ),
-            plan=plan,
-            k=k,
-            scale=scale,
-            clip=clip,
-            mode=mode,
-            n_real=n_real,
-            dv_planes=self._dv_planes() if mode == "fused_dv" else None,
-            **split_kw,
-        )
+            key = step_key(plan, k, scale, clip, mode, n_real, split_p,
+                           inputs, resident)
+            self._last_step = (step, inputs)
+            out = run_step(self._graphs, tuple(slots), key, step, inputs)
         return out, idx_map, piece_maps, nq, k
+
+    def _step_replayer(self):
+        """A zero-argument callable running the last batch's device step
+        again into a fresh output: its graph's replay on the card, the
+        eager step on the CPU (the bench's step leg)."""
+        if self._graphs is not None:
+            return self._graphs.replayer()
+        step, inputs = self._last_step
+        return partial(step, *(torch.from_numpy(a) for a in inputs))
 
     def _collect(self, fut):
         """Force the device->host read of a dispatched batch and

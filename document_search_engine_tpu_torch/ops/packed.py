@@ -51,7 +51,9 @@ def total_cap(indptr: np.ndarray, rows: np.ndarray, found: np.ndarray) -> int:
 def quantize(a, v, scale: float, clip: float, valid):
     """Stage 2: int32 clip(rne((a * v) * scale), 0, clip), 0 where not
     valid; two f32 multiplies, each rounded, in this order."""
-    scale_t = torch.tensor(scale, dtype=torch.float32, device=v.device)
+    # a fill on the device, not a copy from the host: the step runs
+    # under CUDA-graph capture (engine/step_graph.py)
+    scale_t = torch.full((), scale, dtype=torch.float32, device=v.device)
     ci = torch.round((a * v) * scale_t).clamp(0.0, clip).to(torch.int32)
     return torch.where(valid, ci, torch.zeros_like(ci))
 

@@ -50,6 +50,13 @@ from ..engine.engine import (
     synth_warmup_analysis,
 )
 from ..engine.query import QueryFrontend
+from ..engine.step_graph import (
+    StepGraphs,
+    dispatch_span,
+    resident_key,
+    run_step,
+    step_key,
+)
 from ..index import builder
 from ..index.csr import GlobalStats, merge_stats, round_up
 from ..ops.fused import MAX_K
@@ -69,7 +76,13 @@ SCORER_MODES = ("fused", "xla", "xla_rank")
 
 
 def _put(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A host array on `device`: to a card from pinned memory, without
+    waiting on it (the caching host allocator keeps the pinned block
+    until the copy has run); on the CPU the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _replicate(a: np.ndarray, mesh: Mesh) -> dict:
@@ -577,6 +590,17 @@ def _sharded_batch_step(
     return torch.cat([mv, mg], dim=1)
 
 
+def _step_on_device(dev, idx, kw, rows, cbits, cols=None):
+    """_sharded_batch_step on a mesh whose shards all sit on `dev`, with
+    the batch's inputs given once as tensors there (a graph's static
+    inputs)."""
+    return _sharded_batch_step(
+        idx.post_doc, idx.post_val, idx.doc_base, idx.indptr_d,
+        idx.row_start_d, {dev: rows}, {dev: cbits},
+        cols_cat=None if cols is None else {dev: cols}, **kw,
+    )
+
+
 def _sharded_gather_dots(
     emb,  # per shard (d_pad, dim) i8
     ssq,  # per shard (d_pad,) i32
@@ -637,13 +661,24 @@ class DistributedSearchEngine:
         self.split_rows: int | None = None
         # stable plan layouts (ops/plan_cache.py; see SearchEngine)
         self.plan_cache: PlanLayoutCache | None = PlanLayoutCache()
+        # the compiled batch step (engine/step_graph.py) when every shard
+        # sits on one card; a mesh over several cards runs it eagerly
+        self._graphs = (
+            StepGraphs(self.mesh.dst)
+            if len(self.mesh.distinct) == 1 and self.mesh.dst.type == "cuda"
+            else None
+        )
         self._drop_caches()
 
     def _drop_caches(self) -> None:
-        """Forget the embedding and quantile tables: every mutation
-        calls this, so no cache keeps a replaced plane resident."""
+        """Forget the embedding and quantile tables and the step graphs:
+        every mutation calls this, so no cache keeps a replaced plane
+        resident."""
         self._emb_cache = None  # (dim, post_val tensors, (emb, ssq))
         self._quant_cache = None  # (post_doc, indptr_d tensors, tables)
+        self._last_step = None  # (step, host inputs) of the last batch
+        if self._graphs is not None:
+            self._graphs.clear()
 
     def _set_index(self, index: ShardedIndex | None) -> None:
         self.index = index
@@ -1134,81 +1169,92 @@ class DistributedSearchEngine:
         are global, so the host does ONE vocab lookup (inside the
         frontend) and ships one (B_total, S) rows/coefficient-bits pair
         (plus the pieces' quantile columns) to each distinct device of
-        the mesh; per-shard plan tables expand there. Block budgets are
-        scorer-tuned families, max-over-shards per bucket. Returns the
-        in-flight device output plus assembly metadata."""
+        the mesh, from pinned memory on the card; per-shard plan tables
+        expand there. Block budgets are scorer-tuned families,
+        max-over-shards per bucket. When every shard sits on one device
+        the step is the plan's CUDA graph on a card (engine/step_graph.py,
+        the reference's one shard_map program); a mesh over several
+        cards runs it eagerly (untested: one card is in scope). Returns
+        the in-flight device output plus assembly metadata: nothing here
+        waits on the card."""
         idx = self.index
         nq = len(queries)
         if analyzed is None:
             analyzed = self.frontend.analyze_rows(queries, idx.stats)
-        rows, found, a_all, s = self._active(analyzed)
         mode = self.scorer_mode
-        families = self._families(mode)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(
             F32(int(spec.quant_clip_max(self.config.max_query_terms)))
         )
-        split = self._split_active(mode, k, families)
-        p = builder.SPLIT_QUANTILES
-        rows_p, a_p, cols, qidx, pno, natural = self._batch_plan(
-            rows, found, a_all, mode, k, families
-        )
-        n_rows_p = rows_p.shape[0]
-        if self.plan_cache is not None:
-            key = self._plan_key(s, k, mode)
-            cells = self.plan_cache.canonicalize(key, natural, n_rows_p)
-        else:
-            cells = [
-                (
-                    idx_q, nb, blk, rc,
-                    1 << int(np.ceil(np.log2(max(len(idx_q), 1)))),
-                )
-                for idx_q, nb, blk, rc in natural
-            ]
-        buckets, idxs, r_subs, a_subs, c_subs = [], [], [], [], []
-        for idx_q, n_blocks, block, r_c, bq in cells:
-            r_sub = np.zeros((bq, s), np.int32)
-            a_sub = np.zeros((bq, s), F32)
-            r_sub[: len(idx_q)] = rows_p[idx_q]
-            a_sub[: len(idx_q)] = a_p[idx_q]
-            r_subs.append(r_sub)
-            a_subs.append(a_sub)
-            if split:
-                # padding rows take the whole-row piece (0, P) so
-                # cols_cat stays aligned with the bucket offsets
-                c_sub = np.zeros((bq, 2), np.int32)
-                c_sub[:, 1] = p
-                c_sub[: len(idx_q)] = cols[idx_q]
-                c_subs.append(c_sub)
-            buckets.append((n_blocks, block, bq, r_c))
-            idxs.append((idx_q, bq))
-        split_kw = {}
-        if split:
-            _offs_h, offs_d, n_loc = self._doc_quantiles()
-            split_kw = dict(
-                cols_cat=_replicate(np.concatenate(c_subs), self.mesh),
-                quant=offs_d, n_loc=n_loc, split_p=p,
+        with dispatch_span(self._graphs, "dispatch.plan"):
+            rows, found, a_all, s = self._active(analyzed)
+            families = self._families(mode)
+            split = self._split_active(mode, k, families)
+            p = builder.SPLIT_QUANTILES
+            rows_p, a_p, cols, qidx, pno, natural = self._batch_plan(
+                rows, found, a_all, mode, k, families
             )
-        out = _sharded_batch_step(
-            idx.post_doc,
-            idx.post_val,
-            idx.doc_base,
-            idx.indptr_d,
-            idx.row_start_d,
-            _replicate(np.concatenate(r_subs, axis=0), self.mesh),
-            _replicate(
-                np.concatenate(a_subs, axis=0).view(np.int32), self.mesh
-            ),
-            k=k,
-            plan=(s, tuple(buckets)),
-            d_pad=idx.d_pad,
-            scale=scale,
-            clip=clip,
-            mode=mode,
-            mesh_=self.mesh,
-            **split_kw,
-        )
+            n_rows_p = rows_p.shape[0]
+            slot = None
+            if self.plan_cache is not None:
+                slot = self._plan_key(s, k, mode)
+                cells = self.plan_cache.canonicalize(slot, natural, n_rows_p)
+            else:
+                cells = [
+                    (
+                        idx_q, nb, blk, rc,
+                        1 << int(np.ceil(np.log2(max(len(idx_q), 1)))),
+                    )
+                    for idx_q, nb, blk, rc in natural
+                ]
+            buckets, idxs, r_subs, a_subs, c_subs = [], [], [], [], []
+            for idx_q, n_blocks, block, r_c, bq in cells:
+                r_sub = np.zeros((bq, s), np.int32)
+                a_sub = np.zeros((bq, s), F32)
+                r_sub[: len(idx_q)] = rows_p[idx_q]
+                a_sub[: len(idx_q)] = a_p[idx_q]
+                r_subs.append(r_sub)
+                a_subs.append(a_sub)
+                if split:
+                    # padding rows take the whole-row piece (0, P) so
+                    # cols_cat stays aligned with the bucket offsets
+                    c_sub = np.zeros((bq, 2), np.int32)
+                    c_sub[:, 1] = p
+                    c_sub[: len(idx_q)] = cols[idx_q]
+                    c_subs.append(c_sub)
+                buckets.append((n_blocks, block, bq, r_c))
+                idxs.append((idx_q, bq))
+            inputs = (np.concatenate(r_subs, axis=0),
+                      np.concatenate(a_subs, axis=0).view(np.int32))
+            if split:
+                inputs += (np.concatenate(c_subs),)
+        with dispatch_span(self._graphs, "dispatch.enqueue"):
+            plan = (s, tuple(buckets))
+            kw = dict(k=k, plan=plan, d_pad=idx.d_pad, scale=scale,
+                      clip=clip, mode=mode, mesh_=self.mesh)
+            tables = [t for ts in (idx.post_doc, idx.post_val, idx.indptr_d,
+                                   idx.row_start_d) for t in ts]
+            ints = [*idx.doc_base, idx.d_pad]
+            if split:
+                _offs_h, offs_d, n_loc = self._doc_quantiles()
+                kw.update(quant=offs_d, n_loc=n_loc, split_p=p)
+                tables += offs_d
+                ints += n_loc
+            if len(self.mesh.distinct) > 1:
+                rep = [_replicate(a, self.mesh) for a in inputs]
+                out = _sharded_batch_step(
+                    idx.post_doc, idx.post_val, idx.doc_base, idx.indptr_d,
+                    idx.row_start_d, rep[0], rep[1],
+                    cols_cat=rep[2] if split else None, **kw,
+                )
+            else:
+                step = partial(_step_on_device, self.mesh.dst, idx, kw)
+                key = step_key(plan, k, scale, clip, mode, 0,
+                               kw.get("split_p", 0), inputs,
+                               resident_key(tables, ints))
+                self._last_step = (step, inputs)
+                out = run_step(self._graphs, slot, key, step, inputs)
         pm = (
             (qidx, pno, int(pno.max()) + 1 if len(pno) else 1, n_rows_p)
             if split

@@ -1,7 +1,8 @@
 """The torch port stands alone: it imports, builds, serves and reranks in
 a process where importing jax or the JAX package fails (the sharded
-engine on a 2-shard CPU mesh too); no module of the port, and not
-chip_smoke.py, imports either; the engine runs on the card
+engine on a 2-shard CPU mesh too); no module of the port (the compiled
+batch step, engine/step_graph.py, among them), and not chip_smoke.py,
+imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
 compact), its checkpoints, its CLI, its entry points (entry.py), its
@@ -67,6 +68,7 @@ r_ids, r_sc, r_lex = eng.search_rerank(["quick fox", "dog"], k=2,
                                        candidates=4)
 assert r_ids.shape == (2, 2) and set(r_ids[1]) <= {1, 2, 3}, r_ids
 # the xla_rank, fused_dv and split paths (ops/rank.py, ops/fused_dv.py)
+import document_search_engine_tpu_torch.engine.step_graph
 import document_search_engine_tpu_torch.ops.fused_dv
 import document_search_engine_tpu_torch.ops.rank
 for scorer, split in (("xla_rank", None), ("fused_dv", None), ("fused", 1)):
@@ -132,6 +134,8 @@ def test_port_runs_with_jax_blocked():
 def test_no_module_of_the_port_imports_jax():
     paths = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert not (PKG / "shared.py").exists()
+    # the compiled batch step is walked like every module
+    assert PKG / "engine" / "step_graph.py" in paths
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
