@@ -4,8 +4,10 @@ the hybrid rerank path search_rerank, the xla_rank, fused_dv and
 doc-range split serving paths, the index lifecycle (streaming build,
 delete, compact, save/load, the CLI), the sharded engine
 (DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card),
-the reference scorers, the entry points and the trace, and the port's
-benchmark (`python -m document_search_engine_tpu_torch bench`).
+the reference scorers, the entry points and the trace, the port's
+benchmark (`python -m document_search_engine_tpu_torch bench`), and the
+port's tools: the differential fuzz, the segment-count curve and the
+host profile (phase tools).
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -222,9 +224,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sharded windows, 8M). Reported: the line, the w/o-analysis q/s and
    each leg's seconds, peak device bytes and kernel launches.
 
+Phase tools (phase_tools), last, with the card freed of phase 10's
+work: the port's tools (document_search_engine_tpu_torch/tools/) with
+fixed arguments, their own lines sent to stderr. The differential fuzz:
+48 trials from base seed 16 (seed stride 101), whose draws must cover
+every scorer (fused, xla, xla_rank), shard count (0 = the single engine,
+1, 2, 4, every shard on the card), split value (None, 2, 4, 16) and kind,
+k > 16 and each fused route; every trial's engine must equal the oracle
+in ids and scores after its build and after each step of its random
+add/delete/compact history, and B1, dlim, B2t and the rank-only kernel
+must each have launched. The segment curve at its defaults (96,000
+docs, 30,000-term vocabulary, as 1, 2, 4, 8 and 16 streaming segments,
+auto-compact off; 8,192 queries of 8 terms a batch, k 10, depth 8, 16
+batches a pass, best of 2 passes): every count must return the
+1-segment results, launch kernels and hold a step graph, and the
+1-segment results of 1,024 seeded queries must equal the vectorized
+oracle's. The host profile at its defaults (the bench's 1M index, 8,192
+queries of 8 terms, best of 16): the dummy step must be captured into a
+graph and every stage's time be positive. Reported ("tools: ..."): the
+fuzz's trials, seconds, captures and launches; the curve (q/s, relative
+to 1 segment) and per count the build and warm-up seconds, graphs held,
+launches a batch, dispatch.plan and dispatch.enqueue ms a batch, the
+peak and reserved device bytes, the graph pool's bytes and the plan
+cache; the host profile's analyze, dispatch (plan, enqueue) and
+collect ms, the ceiling q/s and the cProfile's top 10 by cumulative
+time.
+
 stdout ends with the lifecycle path's JSON line, the sharded path's,
 the reference path's, the bench's ("bench: ..."), phase graphs'
-("graphs: ..."), the kernels' JSON
+("graphs: ..."), phase tools' ("tools: ..."), the kernels' JSON
 line (the rank-only kernel's launches: the xla_rank path's and phase
 9's packed step's), the card's name and power limit, and {"ok": true,
 "device": {...}} as the last line. Progress goes
@@ -308,6 +336,10 @@ SYNTH_DOCS, SYNTH_AVG_TERMS, BENCH_TIMEOUT_S = 1_000_000, 60, 600
 # must peak below the 16 GB chip on which the reference built it
 TRIPLE_BYTES, BUILD_WORKSPACE_BYTES = 12, 512 << 20
 M8_PEAK_LIMIT_BYTES = 16_000_000_000
+# phase tools: the fuzz's base seed and trial count (chosen so that the
+# trials draw every scorer, shard count, split value and kind, and k > 16)
+# and the segment curve's oracle sample
+FUZZ_BASE, FUZZ_TRIALS, SEG_ORACLE_SAMPLE = 16, 48, 1024
 
 
 def log(msg: str) -> None:
@@ -3676,6 +3708,130 @@ def phase_bench(device):
     return res
 
 
+def fuzz_coverage(configs) -> list:
+    """What the fuzz's drawn trials miss of every scorer, shard count,
+    split value and kind, k > 16 and each fused kernel route (B1: fused,
+    no split, k <= 16; B2t: k > 16; dlim: a split)."""
+    have = {(key, c[key]) for c in configs
+            for key in ("scorer", "n_shards", "split", "kind")}
+    need = ([("scorer", s) for s in ("fused", "xla", "xla_rank")]
+            + [("n_shards", n) for n in (0, 1, 2, 4)]
+            + [("split", s) for s in (None, 2, 4, 16)]
+            + [("kind", s) for s in ("tfidf", "bm25")])
+    missing = [f"{key}={v}" for key, v in need if (key, v) not in have]
+    fused = [c for c in configs if c["scorer"] == "fused"]
+    for what, hit in (
+        ("k > 16", any(c["k"] > 16 for c in configs)),
+        ("B1", any(c["split"] is None and c["k"] <= 16 for c in fused)),
+        ("B2t", any(c["split"] is None and c["k"] > 16 for c in fused)),
+        ("dlim", any(c["split"] is not None for c in fused)),
+    ):
+        if not hit:
+            missing.append(what)
+    return missing
+
+
+def phase_tools(device):
+    """Phase tools: the port's tools (document_search_engine_tpu_torch/
+    tools/) on the card with fixed arguments, their printed lines sent to
+    stderr. The differential fuzz: FUZZ_TRIALS trials from FUZZ_BASE,
+    whose draws must cover fuzz_coverage's list, each bit-identical to
+    the oracle after every step, with B1, dlim, B2t and the rank-only
+    kernel launched. The segment curve at its defaults (96,000 docs as
+    1, 2, 4, 8 and 16 segments, 8,192 queries a batch): every count must
+    return the 1-segment results (the tool raises otherwise), launch
+    kernels through at least one step graph, and the 1-segment results
+    of a seeded SEG_ORACLE_SAMPLE of the queries must equal the
+    vectorized oracle's (the dict oracle takes minutes on such queries;
+    the two are held equal in tests/test_torch_vector_oracle.py). The
+    host profile at its defaults (the bench's 1M index, 8,192 queries):
+    its dummy step must have been captured into a graph, and every
+    stage's time must be positive. Each tool's kernel counts start at 0.
+    Returns the readings of the "tools:" line."""
+    import contextlib
+
+    from document_search_engine_tpu_torch import IndexConfig, ScoringConfig
+    from document_search_engine_tpu_torch.oracle import VectorOracleEngine
+    from document_search_engine_tpu_torch.tools import (
+        fuzz_differential,
+        host_profile,
+        segments_bench,
+    )
+
+    res = {}
+    configs = [fuzz_differential.trial_config(
+        FUZZ_BASE + i * fuzz_differential.SEED_STRIDE)
+        for i in range(FUZZ_TRIALS)]
+    missing = fuzz_coverage(configs)
+    if missing:
+        raise AssertionError(f"fuzz trials draw no {missing}")
+    reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        fz = fuzz_differential.run_trials(FUZZ_BASE, FUZZ_TRIALS, device)
+    idle = [name for name in ("fused_search", "fused_search_split",
+                              "fused_search_large_k", "rank_only")
+            if fz["launches"][name] <= 0]
+    if idle:
+        raise AssertionError(f"fuzz trials launched no {idle}")
+    res["fuzz"] = {key: fz[key] for key in (
+        "trials", "base_seed", "seconds", "captures", "launches")}
+    log(f"tools: fuzz {FUZZ_TRIALS} trials passed in {fz['seconds']:.1f}s, "
+        f"{fz['captures']} graph captures, launches {fz['launches']}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        seg = segments_bench.main(device, env={})
+    seg_s = time.perf_counter() - t0
+    idle = [n for n, r in seg["per_count"].items()
+            if r["launches_per_batch"] <= 0 or r["graphs"] < 1]
+    if idle:
+        raise AssertionError(f"segments: no kernel launch or graph at {idle}")
+    nq = len(seg["queries"])
+    pick = np.sort(np.random.default_rng(14).choice(
+        nq, size=min(SEG_ORACLE_SAMPLE, nq), replace=False))
+    t0 = time.perf_counter()
+    orc = VectorOracleEngine(IndexConfig(scoring=ScoringConfig(kind="bm25")))
+    orc.build(seg["docs"])
+    o_ids, o_sc = orc.search([seg["queries"][i] for i in pick],
+                             k=segments_bench.K)
+    assert_outs_equal([(seg["ids"][pick], seg["scores"][pick])],
+                      [(o_ids, o_sc)], "segments 1-segment vs the oracle")
+    oracle_s = time.perf_counter() - t0
+    res["segments"] = {
+        "curve": seg["curve"],
+        "relative": {n: q / seg["curve"][1] for n, q in seg["curve"].items()},
+        "per_count": seg["per_count"], "seconds": seg_s,
+        "oracle_sample": len(pick), "oracle_s": oracle_s,
+    }
+    log(f"tools: segments curve {seg['curve']} in {seg_s:.1f}s; 1-segment "
+        f"results equal the oracle on {len(pick)} queries "
+        f"({oracle_s:.1f}s)")
+    del seg, orc
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        hp = host_profile.main(device, env={})
+    hp_s = time.perf_counter() - t0
+    if hp["captures"] < 1:
+        raise AssertionError("host_profile: the dummy step was not captured")
+    bad = [key for key in ("analyze_ms", "dispatch_ms", "collect_ms",
+                           "plan_ms", "enqueue_ms") if not hp[key] > 0]
+    if bad:
+        raise AssertionError(f"host_profile: no time for {bad}")
+    res["host_profile"] = {key: hp[key] for key in (
+        "analyze_ms", "dispatch_ms", "plan_ms", "enqueue_ms", "collect_ms",
+        "total_ms", "ceiling_qps", "captures")}
+    res["host_profile"]["seconds"] = hp_s
+    res["host_profile"]["profile_top10"] = [
+        f"{fn}: {cum:.4f}" for fn, cum in hp["profile_top"][:10]]
+    log(f"tools: host profile analyze {hp['analyze_ms']:.2f} / dispatch "
+        f"{hp['dispatch_ms']:.2f} (plan {hp['plan_ms']:.2f}, enqueue "
+        f"{hp['enqueue_ms']:.2f}) / collect {hp['collect_ms']:.2f} ms in "
+        f"{hp_s:.1f}s")
+    return res
+
 
 def thread_sweep(threads=(256, 1024)):
     """The measurement behind ops/fused.py THREADS_BY_RC, on the card:
@@ -3811,6 +3967,8 @@ def main() -> int:
     gr["bench"] = {key: bn["json"][key]
                    for key in ("value", "median", "step_qps")}
     print("graphs: " + json.dumps(gr), flush=True)
+    tl = phase_tools(device)
+    print("tools: " + json.dumps(tl), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
         kernel_entry("fused_search", res["launches"], diffs["fused_search"],

@@ -20,10 +20,12 @@ it has seen.
 - Capture, on a key's first sighting, as jit compiles on its first call:
   the kernel library is built (ops/fused.py build_kernels) if it is not;
   the eager step runs once on a side stream (torch's warm-up rule for
-  capture), and its output answers this batch; then the step is captured
-  on the same side stream into the engine's graph pool (one
-  `torch.cuda.graph_pool_handle()` per engine). The k > 128 plain route
-  (a stable sort and a top-k) has no data-dependent shape, so it is
+  capture), and its output answers this batch; then, once the card is
+  idle and the allocator's unused cache is freed (cuda_capture), the
+  step is captured on the same side stream into the engine's graph pool
+  (one `torch.cuda.graph_pool_handle()` per engine). A capture thus
+  waits on the card; a replay does not. The k > 128 plain route (a
+  stable sort and a top-k) has no data-dependent shape, so it is
   captured like the kernels' routes.
 - Replay, on the caller's current stream: the batch's inputs go from
   pinned host memory into the static inputs with `non_blocking=True`,
@@ -138,9 +140,21 @@ def add_launch_counts(delta) -> None:
 def cuda_capture(pool):
     """The capturer of the card: step(*static_in) captured on the
     current stream into a CUDA graph in `pool`. Returns (replay, static
-    output). A step that fails under capture raises."""
+    output). A step that fails under capture raises.
+
+    Before the capture it waits for the card and frees what the caching
+    allocator holds unused, as `torch.cuda.graph` does on entering: the
+    allocator cannot release cached blocks while a capture is under way,
+    and the capture's pool cannot take blocks cached in the default pool
+    (the warm-up's) or in the pools of released graphs, so without this
+    a capture can run out of memory on a card whose memory sits cached
+    and idle. Unlike `torch.cuda.graph` it runs no gc.collect(): the
+    engines free their tensors by reference counting (no cycle holds
+    them), so a collection would only add to every capture's time."""
 
     def capture(step, static_in):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=pool)
         try:

@@ -59,6 +59,13 @@ def metrics_json(**extra) -> str:
     return json.dumps(rec, sort_keys=True)
 
 
+def mean_ms(name: str):
+    """Mean wall-clock ms a block of phase `name` since reset(); None if
+    none ran."""
+    n = _COUNTS.get(name)
+    return _PHASES[name] * 1e3 / n if n else None
+
+
 def reset() -> None:
     _PHASES.clear()
     _COUNTS.clear()

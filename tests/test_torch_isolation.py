@@ -6,8 +6,9 @@ imports either; the engine runs on the card
 unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
 compact), its checkpoints, its CLI, its entry points (entry.py), its
-phase timers and its benchmark's synthetic index (bench.py) run on the
-CPU; the kernel
+phase timers, its benchmark's synthetic index (bench.py) and its tools
+(tools/: the differential fuzz and the segments curve) run on the CPU;
+the kernel
 wrapper takes its plain version for CPU tensors without counting a
 launch; and each host module the port keeps its own copy of behaves as
 its original in the JAX package on the same inputs."""
@@ -115,6 +116,16 @@ b_eng, b_df, b_tok = bench.build_synth_engine(600, 400, 10, IndexConfig(),
 b_batches, _avg = bench.make_batches(b_df, b_tok, 8, 4, 1)
 b_ids, _b_sc = b_eng.search(b_batches[0], k=5)
 assert b_ids.shape == (8, 5) and (b_ids[:, 0] >= 0).all(), b_ids
+# the ported tools: one fuzz trial on 2 shards and a tiny segments curve
+import document_search_engine_tpu_torch.tools.host_profile
+from document_search_engine_tpu_torch.tools import (
+    fuzz_differential, segments_bench)
+assert fuzz_differential.trial_config(34)["n_shards"] == 2
+fuzz_differential.one_trial(34, device="cpu")
+seg = segments_bench.main(device="cpu", env={
+    "SEG_DOCS": "200", "SEG_VOCAB": "150", "SEG_NQ": "16", "SEG_ITERS": "1",
+    "SEG_COUNTS": "1,2"})
+assert set(seg["curve"]) == {1, 2} and (seg["ids"][:, 0] >= 0).any(), seg
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
@@ -134,8 +145,10 @@ def test_port_runs_with_jax_blocked():
 def test_no_module_of_the_port_imports_jax():
     paths = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert not (PKG / "shared.py").exists()
-    # the compiled batch step is walked like every module
+    # the compiled batch step and the ported tools are walked like every
+    # module; none imports the repo-root tools/ either
     assert PKG / "engine" / "step_graph.py" in paths
+    assert PKG / "tools" / "fuzz_differential.py" in paths
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -146,7 +159,7 @@ def test_no_module_of_the_port_imports_jax():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in BLOCKED, (
+                assert name.split(".")[0] not in BLOCKED + ("tools",), (
                     f"{path.relative_to(REPO)}:{node.lineno} imports {name}"
                 )
 

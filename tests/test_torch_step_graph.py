@@ -363,3 +363,45 @@ def test_dispatch_records_plan_and_enqueue_with_graphs_only():
         "search.analyze": 1, "search.score": 1, "dispatch.plan": 1,
         "dispatch.enqueue": 1}
     prof.reset()
+
+
+def test_card_capture_frees_the_idle_cache_first(monkeypatch):
+    """cuda_capture, as torch.cuda.graph does on entering, waits for the
+    card and empties the allocator's cache before the capture begins
+    (the allocator cannot release cached blocks during a capture), and
+    ends the capture when the step raises."""
+    from document_search_engine_tpu_torch.engine import step_graph
+
+    calls = []
+
+    class FakeGraph:
+        def capture_begin(self, pool=None):
+            calls.append(("capture_begin", pool))
+
+        def capture_end(self):
+            calls.append(("capture_end",))
+
+        def replay(self):
+            calls.append(("replay",))
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append(("synchronize",)))
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: calls.append(("empty_cache",)))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    capture = step_graph.cuda_capture(("pool", 1))
+    x = torch.arange(4)
+    replay, out = capture(lambda t: t * 2, (x,))
+    assert torch.equal(out, x * 2)
+    assert calls == [("synchronize",), ("empty_cache",),
+                     ("capture_begin", ("pool", 1)), ("capture_end",)]
+    replay()
+    assert calls[-1] == ("replay",)
+    calls.clear()
+
+    def failing(t):
+        raise RuntimeError("no capture")
+
+    with pytest.raises(RuntimeError, match="no capture"):
+        capture(failing, (x,))
+    assert calls[-1] == ("capture_end",)
