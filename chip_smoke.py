@@ -6,8 +6,9 @@ delete, compact, save/load, the CLI), the sharded engine
 (DistributedSearchEngine over 1, 2, 4 and 8 shards on the one card),
 the reference scorers, the entry points and the trace, the port's
 benchmark (`python -m document_search_engine_tpu_torch bench`), and the
-port's tools: the differential fuzz, the segment-count curve and the
-host profile (phase tools).
+port's tools: the differential fuzz, the segment-count curve, the
+host profile, the lever and batch-size A/Bs and the kernel's per-stage
+roofline (phase tools).
 
     python3 chip_smoke.py            # the full run, one card, < 20 min
 
@@ -241,14 +242,28 @@ batches a pass, best of 2 passes): every count must return the
 1-segment results of 1,024 seeded queries must equal the vectorized
 oracle's. The host profile at its defaults (the bench's 1M index, 8,192
 queries of 8 terms, best of 16): the dummy step must be captured into a
-graph and every stage's time be positive. Reported ("tools: ..."): the
+graph and every stage's time be positive. Then (phase_tools_ab) the
+lever A/B, the batch-size A/B and the roofline at their defaults on one
+bench index they share (1M docs, seed 1): step_ab's baseline and
+block2048, split128, threads16, threads64 on 8,192 queries, each
+bit-identical to the baseline with a graph captured after its apply;
+nq_ab's legs 8,192 and 16,384 (5 interleaved passes, each leg with its
+own plan layouts and graphs), every pass returning nq x iters rows with
+no capture inside it; the roofline's 8,192-query batch, its captured
+buckets' real postings equal to the natural plan's and no bucket timed
+below its bound. Reported ("tools: ..."): the
 fuzz's trials, seconds, captures and launches; the curve (q/s, relative
 to 1 segment) and per count the build and warm-up seconds, graphs held,
 launches a batch, dispatch.plan and dispatch.enqueue ms a batch, the
 peak and reserved device bytes, the graph pool's bytes and the plan
 cache; the host profile's analyze, dispatch (plan, enqueue) and
 collect ms, the ceiling q/s and the cProfile's top 10 by cumulative
-time.
+time; step_ab's ms, q/s, captures and peak bytes a setting; nq_ab's
+passes (q/s, ms a batch, dispatch.plan and dispatch.enqueue ms,
+captures), best, median and step-only q/s a leg; the roofline's peaks
+and, per natural and per captured bucket, its stage bounds, bound,
+dominant stage, placement, threads, resident blocks an SM and (captured)
+measured ms.
 
 stdout ends with the lifecycle path's JSON line, the sharded path's,
 the reference path's, the bench's ("bench: ..."), phase graphs'
@@ -3747,7 +3762,7 @@ def phase_tools(device):
     host profile at its defaults (the bench's 1M index, 8,192 queries):
     its dummy step must have been captured into a graph, and every
     stage's time must be positive. Each tool's kernel counts start at 0.
-    Returns the readings of the "tools:" line."""
+    Then phase_tools_ab. Returns the readings of the "tools:" line."""
     import contextlib
 
     from document_search_engine_tpu_torch import IndexConfig, ScoringConfig
@@ -3830,7 +3845,104 @@ def phase_tools(device):
         f"{hp['dispatch_ms']:.2f} (plan {hp['plan_ms']:.2f}, enqueue "
         f"{hp['enqueue_ms']:.2f}) / collect {hp['collect_ms']:.2f} ms in "
         f"{hp_s:.1f}s")
+    res.update(phase_tools_ab(device))
     return res
+
+
+def phase_tools_ab(device):
+    """The rest of phase tools: the lever A/B, the batch-size A/B and the
+    roofline at their defaults, on one bench index they share
+    (bench.build_synth_engine: 1M docs, 200,000 terms, 60 postings a
+    doc, seed 1). step_ab: every setting bit-identical to the baseline
+    (the tool raises otherwise) and at least one graph captured after
+    each apply. nq_ab: every leg's passes return nq x iters rows with no
+    graph captured inside a timed pass. roofline: the captured buckets'
+    real postings equal the natural plan's, and no bucket measures below
+    its bound (the tool raises on either; checked here again). Each
+    tool's kernel counts start at 0. Returns their readings."""
+    import contextlib
+
+    from document_search_engine_tpu_torch import (
+        IndexConfig,
+        ScoringConfig,
+        bench,
+    )
+    from document_search_engine_tpu_torch.tools import nq_ab, roofline, step_ab
+
+    res = {}
+    t0 = time.perf_counter()
+    built = bench.build_synth_engine(
+        SYNTH_DOCS, max(50_000, SYNTH_DOCS // 5), SYNTH_AVG_TERMS,
+        IndexConfig(scoring=ScoringConfig(kind="bm25")), seed=1,
+        device=device)
+    res["ab_index_s"] = time.perf_counter() - t0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        ab = step_ab.main(device, env={}, built=built)
+    idle = [r["name"] for r in ab["results"] if r["captures"] < 1]
+    if idle:
+        raise AssertionError(f"step_ab: no graph captured after {idle}")
+    res["step_ab"] = {"nq": ab["nq"], "iters": ab["iters"],
+                      "results": ab["results"],
+                      "launches": bench.launch_counts(),
+                      "seconds": time.perf_counter() - t0}
+    log(f"tools: step_ab "
+        f"{[(r['name'], round(r['ms'], 3)) for r in ab['results']]}, every "
+        f"setting bit-identical, in {res['step_ab']['seconds']:.1f}s")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        nqr = nq_ab.main(device, env={}, built=built)
+    for nq, leg in nqr["legs"].items():
+        bad = [p for p in leg["passes"] if p["captures"] != 0
+               or p["n_out"] != nq * leg["iters"]]
+        if bad:
+            raise AssertionError(f"nq_ab nq={nq}: passes {bad}")
+    res["nq_ab"] = {"legs": nqr["legs"], "launches": bench.launch_counts(),
+                    "seconds": time.perf_counter() - t0}
+    log("tools: nq_ab " + ", ".join(
+        f"nq={nq} median {leg['median']:,.0f} q/s, step {leg['step_qps']:,.0f}"
+        for nq, leg in nqr["legs"].items())
+        + f" in {res['nq_ab']['seconds']:.1f}s")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rf = roofline.main(device, env={}, built=built)
+    del built
+    post = rf["real_postings"]
+    if post["captured"] != post["natural"]:
+        raise AssertionError(f"roofline: real postings {post}")
+    low = [a["bucket"] for a in rf["card"] if not a["ms"] >= a["bound_ms"]]
+    if low:
+        raise AssertionError(f"roofline: buckets below their bound: {low}")
+    res["roofline"] = {
+        "peaks": rf["peaks"], "real_postings": post,
+        "natural_buckets": rf["natural_buckets"],
+        "host": [_roof_row(a) for a in rf["host"]],
+        "card": [_roof_row(a) for a in rf["card"]],
+        "seconds": time.perf_counter() - t0,
+    }
+    log(f"tools: roofline {len(rf['card'])} buckets, "
+        f"{sum(a['ms'] for a in rf['card']):.4f} ms against "
+        f"{sum(a['bound_ms'] for a in rf['card']):.4f} ms of bounds, "
+        f"dominant {[a['dominant'] for a in rf['card']]}, in "
+        f"{res['roofline']['seconds']:.1f}s")
+    return res
+
+
+def _roof_row(a):
+    """One roofline bucket for the tools line: its shape, launch, counts,
+    stage bounds (ms, by), bound and time."""
+    row = {key: a.get(key) for key in (
+        "bucket", "threads", "blocks_per_sm", "placement", "real_pairs",
+        "runs_max", "levels_max", "barriers", "stage_sum_ms", "bound_ms",
+        "bound_by", "dominant", "ms")}
+    row["stages"] = {st: [v["ms"], v["by"]] for st, v in a["stages"].items()}
+    return row
 
 
 def thread_sweep(threads=(256, 1024)):

@@ -205,6 +205,12 @@ class StepGraphs:
     def __len__(self) -> int:
         return sum(len(g) for g in self._slots.values())
 
+    def fresh(self) -> "StepGraphs":
+        """A new StepGraphs on the same device with the same capturer and
+        no graph (a pool of its own), for a caller that alternates
+        workloads whose keys share a slot (tools/nq_ab.py)."""
+        return StepGraphs(self.device, self._capturer)
+
     def clear(self) -> None:
         """Release every graph (and the last run's inputs)."""
         self._slots.clear()

@@ -9,6 +9,15 @@ package, each written against the port's public API and run with
 - `host_profile`: the host's analyze -> _dispatch -> _collect of a bench
   batch with the device step replaced by a shaped dummy, and a cProfile
   of the dispatch.
+- `step_ab`: one bench batch's device step timed under each lever
+  setting (block family, dv planes, split rows, min blocks, the fused
+  kernel's thread rule and compaction granule), bit-identical to the
+  baseline.
+- `nq_ab`: the public serving loop at several batch sizes, legs
+  interleaved, each on its own plan layouts and step graphs.
+- `roofline`: the fused kernel's stages (plan table, load, natural
+  runs, merge, run-sums, select, output) against the card's peaks on the
+  bench's reconstructed batch, timed bucket by bucket on the card.
 
 Each runs on the card unless the CPU is asked for (`--device cpu`, or
 `main(device="cpu")`); asking for the card without CUDA raises.

@@ -7,7 +7,8 @@ unless asked for the CPU, and asking for the card without CUDA raises;
 its xla_rank, fused_dv and split paths, its lifecycle (add, delete,
 compact), its checkpoints, its CLI, its entry points (entry.py), its
 phase timers, its benchmark's synthetic index (bench.py) and its tools
-(tools/: the differential fuzz and the segments curve) run on the CPU;
+(tools/: the differential fuzz, the segments curve, the lever A/B and
+the roofline's host account) run on the CPU;
 the kernel
 wrapper takes its plain version for CPU tensors without counting a
 launch; and each host module the port keeps its own copy of behaves as
@@ -118,6 +119,7 @@ b_ids, _b_sc = b_eng.search(b_batches[0], k=5)
 assert b_ids.shape == (8, 5) and (b_ids[:, 0] >= 0).all(), b_ids
 # the ported tools: one fuzz trial on 2 shards and a tiny segments curve
 import document_search_engine_tpu_torch.tools.host_profile
+import document_search_engine_tpu_torch.tools.nq_ab
 from document_search_engine_tpu_torch.tools import (
     fuzz_differential, segments_bench)
 assert fuzz_differential.trial_config(34)["n_shards"] == 2
@@ -126,6 +128,17 @@ seg = segments_bench.main(device="cpu", env={
     "SEG_DOCS": "200", "SEG_VOCAB": "150", "SEG_NQ": "16", "SEG_ITERS": "1",
     "SEG_COUNTS": "1,2"})
 assert set(seg["curve"]) == {1, 2} and (seg["ids"][:, 0] >= 0).any(), seg
+# the lever A/B at a tiny size, and the roofline's host account
+from document_search_engine_tpu_torch.tools import roofline, step_ab
+ab = step_ab.main(device="cpu", env={
+    "AB_DOCS": "600", "AB_VOCAB": "400", "AB_NQ": "8", "AB_ITERS": "1",
+    "STEP_AB": "block2048,threads16"})
+assert [r["name"] for r in ab["results"]] == [
+    "baseline", "block2048", "threads16"], ab
+rf = roofline.main(device="cpu", env={
+    "BENCH_DOCS": "3000", "BENCH_VOCAB": "2000", "BENCH_NQ": "16",
+    "ROOF_CARD": "0"})
+assert rf["card"] is None and rf["host"], rf
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("OK")
@@ -146,9 +159,11 @@ def test_no_module_of_the_port_imports_jax():
     paths = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert not (PKG / "shared.py").exists()
     # the compiled batch step and the ported tools are walked like every
-    # module; none imports the repo-root tools/ either
+    # module; none imports the repo-root tools/ or bench.py either
     assert PKG / "engine" / "step_graph.py" in paths
     assert PKG / "tools" / "fuzz_differential.py" in paths
+    for name in ("nq_ab", "step_ab", "roofline"):
+        assert PKG / "tools" / f"{name}.py" in paths
     for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -159,7 +174,8 @@ def test_no_module_of_the_port_imports_jax():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in BLOCKED + ("tools",), (
+                assert name.split(".")[0] not in BLOCKED + (
+                    "tools", "bench"), (
                     f"{path.relative_to(REPO)}:{node.lineno} imports {name}"
                 )
 
