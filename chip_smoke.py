@@ -195,8 +195,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    after a delete + add. entry() on the card must launch the rank-only
    kernel and equal the same step on CPU tensors; dryrun_multichip(8)
    must pass (its rankings equal the oracle's). search must record
-   exactly the phases search.analyze, search.score, dispatch.plan and
-   dispatch.enqueue, and a trace
+   exactly the phases search.analyze, search.score, dispatch.plan,
+   dispatch.enqueue, collect.wait and collect.assemble, and a trace
    (utils/prof.py trace, traces/chip_smoke_trace.json) of one
    search_stream pass, after one untraced pass that captures every
    batch's graph, must hold the fused kernel's events. Reported:
@@ -3502,9 +3502,10 @@ def phase_prof(eng, batches, res):
     eng.search(batches[0], k=K)
     phases = json.loads(prof.metrics_json())["phases_s"]
     # on the card the dispatch's planning and enqueue (the step graph's
-    # replay) are phases of their own
+    # replay) and the collect's wait and assembly are phases of their own
     if set(phases) != {"search.analyze", "search.score", "dispatch.plan",
-                       "dispatch.enqueue"}:
+                       "dispatch.enqueue", "collect.wait",
+                       "collect.assemble"}:
         raise AssertionError(f"search recorded phases {sorted(phases)}")
     res["search_phases_s"] = phases
     # a steady window: every batch's step graph captured before the trace

@@ -40,9 +40,17 @@ cache keeps a replaced plane resident.
 Phase timers (utils/prof.py), where the reference records them:
 `build.analyze` around add_docs' text analysis, `search.analyze` and
 `search.score` around search's analysis and its dispatch and collect.
-On the card `_dispatch` also records `dispatch.plan` (slot slicing, row
-lookup, planning, layout cells, array fill) and `dispatch.enqueue`
-(staging, copies, the graph's replay or capture, the copy-out).
+On the card (where the engine keeps step graphs, step_graph.py
+dispatch_span) the serving path also records, each batch of a
+search_stream: `stream.analyze` (the frontend's analysis, on the
+stream's worker thread),
+`stream.wait_analysis` (the main thread's wait for it), `dispatch.plan`
+(slot slicing, row lookup, planning, layout cells, array fill),
+`dispatch.enqueue` (staging, copies, the graph's replay or capture, the
+copy-out), `collect.wait` (out.cpu(): the host blocked on the card and
+the D2H) and `collect.assemble` (the rest of _collect), and the counter
+`step.pairs` (the (query, posting) pairs of the batch's plan). Inside
+`prof.trace` each span is also a record_function event of the trace.
 """
 from __future__ import annotations
 
@@ -178,12 +186,14 @@ def _batch_step(
     return stacked.index_select(0, idx_flat.long())
 
 
-def pipelined_stream(query_batches, depth, analyze_job, dispatch_job):
+def pipelined_stream(query_batches, depth, analyze_job, dispatch_job, span):
     """Serving loop: a worker thread prefetches analysis up to 2 batches
     ahead while the main thread dispatches and drains a depth-N
     in-flight window. analyze_job(queries) -> analysis snapshot or None
-    (safe on a worker thread); dispatch_job(queries, analysis) -> a
-    thunk producing that batch's (ids, scores) when called."""
+    (safe on a worker thread); dispatch_job(queries, analysis) -> a thunk
+    producing that batch's (ids, scores) when called; span(name) -> the
+    context the main thread waits for an analysis in (a phase timer,
+    step_graph.py dispatch_span)."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
@@ -207,7 +217,8 @@ def pipelined_stream(query_batches, depth, analyze_job, dispatch_job):
                 break
         while an_q:
             queries, fut_an = an_q.popleft()
-            res = fut_an.result()
+            with span("stream.wait_analysis"):
+                res = fut_an.result()
             submit_next()
             inflight.append(dispatch_job(queries, res))
             if len(inflight) >= depth:
@@ -660,7 +671,8 @@ class SearchEngine:
             stats = self.stats  # snapshot: identity-checked at dispatch
             if len(queries) == 0 or not self.segments:
                 return None
-            return (stats, self.frontend.analyze_rows(queries, stats))
+            with dispatch_span(self._graphs, "stream.analyze"):
+                return (stats, self.frontend.analyze_rows(queries, stats))
 
         def dispatch_job(queries, res):
             if res is not None and res[0] is not self.stats:
@@ -679,7 +691,8 @@ class SearchEngine:
             return partial(self._collect, fut)
 
         yield from pipelined_stream(
-            query_batches, depth, analyze_job, dispatch_job
+            query_batches, depth, analyze_job, dispatch_job,
+            partial(dispatch_span, self._graphs),
         )
 
     def warmup(
@@ -769,19 +782,28 @@ class SearchEngine:
                       families, mode, k):
         """Shared by preplan and _dispatch: the segment's natural plan
         and, when splitting, its piece table. Returns (rows_p, a_p, cols,
-        qidx, pno, natural); cols/qidx/pno are None when the plan rows
-        are the queries themselves."""
+        qidx, pno, natural, pairs); cols/qidx/pno are None when the plan
+        rows are the queries themselves; pairs is the (query, posting)
+        pairs the plan asks the kernels to score (a split query's
+        pieces sum to its postings)."""
         compact = mode.startswith("fused") and k <= MAX_K
-        # empty segments have no quantile table (T = 0) and nothing to
-        # split; they take the unsplit plan (zero blocks either way)
-        if not self._split_active(mode, k, families) or len(host.indptr) < 2:
+        # empty segments have no postings, no quantile table (T = 0) and
+        # nothing to split; they take the unsplit plan (zero blocks)
+        if len(host.indptr) < 2:
             natural = plan_batch(
                 host.indptr, rows, found, families=families,
                 min_blocks=self.plan_min_blocks, compact=compact,
             )
-            return rows, a_seg, None, None, None, natural
-        offs_h, _offs_d = self._doc_quantiles(si, host, dev_seg)
+            return rows, a_seg, None, None, None, natural, 0
         lens = (host.indptr[rows + 1] - host.indptr[rows]) * found
+        pairs = int(lens.sum())
+        if not self._split_active(mode, k, families):
+            natural = plan_batch(
+                host.indptr, rows, found, families=families,
+                min_blocks=self.plan_min_blocks, compact=compact, lens=lens,
+            )
+            return rows, a_seg, None, None, None, natural, pairs
+        offs_h, _offs_d = self._doc_quantiles(si, host, dev_seg)
         qidx, pno, cols, lens_p = split_pieces(
             lens, rows, offs_h, self.split_rows, families[0][1],
             builder.SPLIT_QUANTILES,
@@ -790,7 +812,7 @@ class SearchEngine:
             host.indptr, rows[qidx], found[qidx], families=families,
             min_blocks=self.plan_min_blocks, compact=compact, lens=lens_p,
         )
-        return rows[qidx], a_seg[qidx], cols, qidx, pno, natural
+        return rows[qidx], a_seg[qidx], cols, qidx, pno, natural, pairs
 
     def _dv_planes(self):
         """Per segment the (X + 8, 256) interleaved doc|value plane of
@@ -837,7 +859,7 @@ class SearchEngine:
             for si, host, rows, found, a_seg in self._segment_inputs(
                 slot_h, coeff, rows_g, found_g
             ):
-                rows_p, _a, _cols, _qidx, _pno, natural = self._segment_plan(
+                rows_p, _a, _c, _q, _p, natural, _n = self._segment_plan(
                     si, host, self.segments[si][1], rows, found, a_seg,
                     families, mode, k,
                 )
@@ -874,13 +896,17 @@ class SearchEngine:
             idx_map = []  # per segment: list of (plan-row indices, bq)
             piece_maps = []  # per segment: None | (qidx, pno, mmax, rows)
             r_subs, a_subs, c_subs = [], [], []
+            pairs = 0
             for si, host, rows, found, a_seg in self._segment_inputs(
                 slot_h, coeff, rows_g, found_g
             ):
-                rows_p, a_p, cols, qidx, pno, natural = self._segment_plan(
-                    si, host, self.segments[si][1], rows, found, a_seg,
-                    families, mode, k,
+                rows_p, a_p, cols, qidx, pno, natural, n_pairs = (
+                    self._segment_plan(
+                        si, host, self.segments[si][1], rows, found, a_seg,
+                        families, mode, k,
+                    )
                 )
+                pairs += n_pairs
                 n_rows_p = rows_p.shape[0]
                 if self.plan_cache is not None:
                     key = self._plan_key(si, host, s, k, mode, families)
@@ -943,6 +969,8 @@ class SearchEngine:
             inputs = (r_all, np.concatenate(a_subs, axis=0).view(np.int32))
             if split:
                 inputs += (np.concatenate(c_subs),)
+            if self._graphs is not None:  # dispatch_span's rule
+                prof.count("step.pairs", pairs)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(
@@ -987,40 +1015,44 @@ class SearchEngine:
     def _collect(self, fut):
         """Force the device->host read of a dispatched batch and
         assemble (ids, scores): a split query's doc-disjoint pieces, and
-        then the segments, merge by (score desc, gid asc) on the host."""
+        then the segments, merge by (score desc, gid asc) on the host.
+        On the card the read is span collect.wait, the rest
+        collect.assemble."""
         out, idx_map, piece_maps, nq, k = fut
-        host = out.cpu().numpy()
-        all_vals, all_gids = [], []
-        off = 0  # rows are the gathered REAL rows, bq pad dropped
-        for idxs, pm in zip(idx_map, piece_maps):
-            n_rows = nq if pm is None else pm[3]
-            seg_v = np.full((n_rows, k), -1, np.int32)
-            seg_g = np.full((n_rows, k), -1, np.int32)
-            for idx, _bq in idxs:
-                seg_v[idx] = host[off : off + len(idx), :k]
-                seg_g[idx] = host[off : off + len(idx), k:]
-                off += len(idx)
-            if pm is not None and pm[2] > 1:
-                # pieces are doc-disjoint, so the merge of their top-ks
-                # is the unsplit ranking (as for segments below)
-                qidx, pno, mmax, _n = pm
-                pv = np.full((nq, mmax, k), -1, np.int32)
-                pg = np.full((nq, mmax, k), -1, np.int32)
-                pv[qidx, pno] = seg_v
-                pg[qidx, pno] = seg_g
-                seg_v, seg_g = _merge_ranked(
-                    pv.reshape(nq, mmax * k), pg.reshape(nq, mmax * k), k
+        with dispatch_span(self._graphs, "collect.wait"):
+            host = out.cpu().numpy()
+        with dispatch_span(self._graphs, "collect.assemble"):
+            all_vals, all_gids = [], []
+            off = 0  # rows are the gathered REAL rows, bq pad dropped
+            for idxs, pm in zip(idx_map, piece_maps):
+                n_rows = nq if pm is None else pm[3]
+                seg_v = np.full((n_rows, k), -1, np.int32)
+                seg_g = np.full((n_rows, k), -1, np.int32)
+                for idx, _bq in idxs:
+                    seg_v[idx] = host[off : off + len(idx), :k]
+                    seg_g[idx] = host[off : off + len(idx), k:]
+                    off += len(idx)
+                if pm is not None and pm[2] > 1:
+                    # pieces are doc-disjoint, so the merge of their top-ks
+                    # is the unsplit ranking (as for segments below)
+                    qidx, pno, mmax, _n = pm
+                    pv = np.full((nq, mmax, k), -1, np.int32)
+                    pg = np.full((nq, mmax, k), -1, np.int32)
+                    pv[qidx, pno] = seg_v
+                    pg[qidx, pno] = seg_g
+                    seg_v, seg_g = _merge_ranked(
+                        pv.reshape(nq, mmax * k), pg.reshape(nq, mmax * k), k
+                    )
+                all_vals.append(seg_v)
+                all_gids.append(seg_g)
+            if len(all_vals) == 1:
+                v, g = all_vals[0], all_gids[0]
+            else:
+                v, g = _merge_ranked(
+                    np.concatenate(all_vals, axis=1),
+                    np.concatenate(all_gids, axis=1), k,
                 )
-            all_vals.append(seg_v)
-            all_gids.append(seg_g)
-        if len(all_vals) == 1:
-            v, g = all_vals[0], all_gids[0]
-        else:
-            v, g = _merge_ranked(
-                np.concatenate(all_vals, axis=1),
-                np.concatenate(all_gids, axis=1), k,
-            )
-        return g[:nq].astype(np.int64), v[:nq].astype(np.int64)
+            return g[:nq].astype(np.int64), v[:nq].astype(np.int64)
 
 
 def _merge_ranked(vc: np.ndarray, gc: np.ndarray, k: int):

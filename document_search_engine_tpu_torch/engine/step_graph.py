@@ -112,7 +112,7 @@ def run_step(graphs, slot, key: StepKey, step, inputs) -> torch.Tensor:
 
 
 def dispatch_span(graphs, name):
-    """A dispatch phase timer (utils/prof.py) when the engine keeps
+    """A serving-path phase timer (utils/prof.py) when the engine keeps
     graphs; none on the CPU, whose search records only the reference's
     phases."""
     return prof.phase(name) if graphs is not None else nullcontext()

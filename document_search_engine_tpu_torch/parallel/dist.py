@@ -1024,7 +1024,8 @@ class DistributedSearchEngine:
             return partial(self._collect, fut)
 
         yield from pipelined_stream(
-            query_batches, depth, analyze_job, dispatch_job
+            query_batches, depth, analyze_job, dispatch_job,
+            partial(dispatch_span, self._graphs),
         )
 
     def _plan_key(self, s, k, mode):

@@ -361,7 +361,7 @@ def test_dispatch_records_plan_and_enqueue_with_graphs_only():
     eng.search(queries, k=5)
     assert json.loads(prof.metrics_json())["counts"] == {
         "search.analyze": 1, "search.score": 1, "dispatch.plan": 1,
-        "dispatch.enqueue": 1}
+        "dispatch.enqueue": 1, "collect.wait": 1, "collect.assemble": 1}
     prof.reset()
 
 
