@@ -302,6 +302,12 @@ KERNELS = {
         FUSED_SOURCE, "document_search_engine_tpu/ops/fused_dv.py:119"),
     "fused_search_split": (
         FUSED_SOURCE, "document_search_engine_tpu/ops/fused_pallas.py:395"),
+    # none of its own: it serves fused_search's buckets of r_c >=
+    # ops/fused.py TILED_MIN_RC (without doc limits)
+    "fused_tiled": (
+        "document_search_engine_tpu_torch/csrc/fused_tiled.cu",
+        "document_search_engine_tpu/ops/fused_pallas.py:288 (r_c >= "
+        "TILED_MIN_RC)"),
 }
 # the card's peaks for bound_ms (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -436,13 +442,17 @@ def check_fused(device, diffs, d2, v2, tabs, nb, block, s, k, n_docs, rc,
                 kb, what, cut=None) -> int:
     """One fused_search call, and one fused_search_dv call over the
     interleaved plane of the same planes, each against its plain
-    version; returns hits. With `cut` the kernels read planes cut after
-    that many rows (the plain versions, which read whole blocks, keep
-    them)."""
+    version; returns hits. Where fused_search takes the tiled kernels
+    (ops/tiled.py tiled_route), the fused kernel (B1) is launched on the
+    same tables too: the tiled kernels against the plain version, B1 and
+    their plain mirror, B1 against the plain version. With `cut` the
+    kernels read planes cut after that many rows (the plain versions,
+    which read whole blocks, keep them)."""
     import torch
 
     from document_search_engine_tpu_torch.ops import fused as F
     from document_search_engine_tpu_torch.ops import fused_dv as FD
+    from document_search_engine_tpu_torch.ops import tiled as T
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     kw = dict(n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs,
@@ -454,8 +464,22 @@ def check_fused(device, diffs, d2, v2, tabs, nb, block, s, k, n_docs, rc,
     got_dv = FD.fused_search_dv(dv, *tabs, r_c=rc, key_bits=kb, **kw)
     want_dv = FD.fused_search_dv_plain(
         FD.interleave_planes(t(d2), t(v2)), *tabs[:3], **kw)
-    torch.cuda.synchronize()
     diff = diffs[fused_name(k)]
+    if T.tiled_route(mode="fused", k=k, split=False, r_c=rc, n_blocks=nb,
+                     s=s):
+        b1 = F.launch_fused((t(d2[:cut]), t(v2[:cut])), *tabs, None, r_c=rc,
+                            key_bits=kb, **kw)
+        mirror = T.tiled_search_plain(t(d2), t(v2), *tabs, block=block, k=k,
+                                      n_docs=n_docs, scale=SCALE, clip=CLIP,
+                                      r_c=rc)
+        torch.cuda.synchronize()
+        for other, name in ((want, "plain"), (b1, "B1"), (mirror, "mirror")):
+            diffs["fused_tiled"].check(got[0], other[0],
+                                       f"{what} tiled vs {name} vals")
+            diffs["fused_tiled"].check(got[1], other[1],
+                                       f"{what} tiled vs {name} docs")
+        got = b1
+    torch.cuda.synchronize()
     diff.check(got[0], want[0], what + " vals")
     diff.check(got[1], want[1], what + " docs")
     diffs["fused_search_dv"].check(got_dv[0], want_dv[0], what + " dv vals")
@@ -1626,6 +1650,30 @@ def fused_bound(calls):
             "bytes" if t_bytes >= t_ops else "operations", post)
 
 
+def tiled_bound(calls):
+    """bound_ms of the tiled kernels over buckets: the demand that
+    tools/roofline.py tiled_account counts for each (its real pairs, from
+    the plan tables' runs; the plan tables, the chunks' survivors and the
+    output) at the card's peaks (roofline.peaks). Returns (bound_ms,
+    bound_by: the resource of the largest bucket's bound)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import tiled as T
+    from document_search_engine_tpu_torch.tools import roofline as R
+
+    pk = R.peaks(torch.device("cuda"))
+    accs = []
+    for _seg, tabs, p, _dl, _dv in calls:
+        runs = T.tiled_runs(*(t.cpu().numpy() for t in tabs),
+                            block=p["block"], r_c=p["r_c"])
+        accs.append(R.tiled_account(
+            sum(int(r["off"][-1]) for r in runs), int(tabs[0].shape[0]),
+            p["n_blocks"], p["block"], p["r_c"], p["s"], p["n_docs"],
+            p["k"], pk))
+    return (sum(a["bound_ms"] for a in accs),
+            max(accs, key=lambda a: a["bound_ms"])["bound_by"])
+
+
 def rank_bound(packed, k):
     """bound_ms of the rank-only kernel over one batch's buckets: the
     packed (nq, C) int32 doc keys and contributions read once and the
@@ -1705,29 +1753,56 @@ def bucket_report(shape, ms, reps, runs, real, c, sw):
     }
 
 
-def launch_report(mode, call, k):
-    """A bucket's launch: threads a block and resident blocks an SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; not reported for the
-    rank-only kernel)."""
-    from document_search_engine_tpu_torch.ops import fused as F
-    from document_search_engine_tpu_torch.ops.rank import THREADS
+def bucket_kernel(mode, call) -> str:
+    """The KERNELS entry of the kernel that serves a captured bucket
+    (bucket_calls) in the engine's scorer mode: the tiled kernels where
+    ops/tiled.py tiled_route takes it, else the mode's kernel."""
+    from document_search_engine_tpu_torch.ops import tiled as T
 
     if mode == "xla_rank":
-        return {"threads": THREADS, "blocks_per_sm": None}
+        return "rank_only"
     _seg, _tabs, p, dlim, dv = call
+    if T.tiled_route(mode=mode, k=p["k"], split=dlim is not None,
+                     r_c=p["r_c"], n_blocks=p["n_blocks"], s=p["s"]):
+        return "fused_tiled"
+    if dv is not None:
+        return "fused_search_dv"
+    if dlim is not None:
+        return "fused_search_split"
+    return fused_name(p["k"])
+
+
+def launch_report(mode, call, k):
+    """A bucket's launch: its kernel (bucket_kernel), threads a block and
+    resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    not reported for the rank-only kernel)."""
+    from document_search_engine_tpu_torch.ops import fused as F
+    from document_search_engine_tpu_torch.ops import tiled as T
+    from document_search_engine_tpu_torch.ops.rank import THREADS
+
+    kernel = bucket_kernel(mode, call)
+    if kernel == "rank_only":
+        return {"kernel": kernel, "threads": THREADS, "blocks_per_sm": None}
+    _seg, _tabs, p, dlim, dv = call
+    if kernel == "fused_tiled":
+        return {"kernel": kernel, "threads": T.TILED_THREADS,
+                "blocks_per_sm": T.tiled_blocks_per_sm(p["n_blocks"],
+                                                       p["s"])}
     threads = F.launch_threads(p["r_c"])
     load = 2 if dv is not None else int(dlim is not None)
-    return {"threads": threads,
+    return {"kernel": kernel, "threads": threads,
             "blocks_per_sm": F._lib().dse_fused_blocks_per_sm(
                 load, threads, p["r_c"], p["n_blocks"])}
 
 
-def time_batch_buckets(eng, batch, k, diff, res, key):
+def time_batch_buckets(eng, batch, k, diffs, res, key):
     """One batch's buckets at k, captured from a dispatch in the
-    engine's current mode: the path's kernel (the fused kernel, its dlim
-    or dv load stage, or the rank-only kernel) against its plain version
-    in full, each timed as the median of TIMED_REPS warm runs; the bound
-    from the same inputs."""
+    engine's current mode: the path's kernels (the fused kernel, its dlim
+    or dv load stage, the tiled kernels, or the rank-only kernel) against
+    their plain version in full, each timed as the median of TIMED_REPS
+    warm runs; the bound from the same inputs. `by_kernel` holds the
+    same for each kernel's own buckets (bucket_kernel), whose
+    comparisons go to diffs[kernel]: the kernels line's entries."""
     import torch
 
     from document_search_engine_tpu_torch.ops import fused as F
@@ -1763,14 +1838,18 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
                                           s=p["s"], k=p["k"],
                                           n_docs=p["n_docs"])
 
-        def run_plain():
-            return [rank_chunks(d, ci, p) for d, ci, p in packed]
+        def plain_one(i):
+            d, ci, p = packed[i]
+            return rank_chunks(d, ci, p)
 
         def stats(i):
             d, ci, p = packed[i]
             c = d.shape[1]
             return (*run_statistics(d, ci, p["block"], p["n_docs"]), c,
                     smem_words(c // p["block"], c))
+
+        def bound(idx):
+            return rank_bound([packed[i] for i in idx], k)[:2]
 
         out["bound_ms"], out["bound_by"], out["candidates"] = rank_bound(
             packed, k)
@@ -1801,21 +1880,40 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
                     torch.cat([n for _r, n in parts]), p["r_c"] * 128,
                     F.buffer_words(p["r_c"], nb))
 
-        def run_plain():
-            return [plain_chunks(s, t, p, dl, dv)
-                    for s, t, p, dl, dv in calls]
+        def plain_one(i):
+            return plain_chunks(*calls[i])
+
+        def bound(idx):
+            sub = [calls[i] for i in idx]
+            if kernels[idx[0]] == "fused_tiled":
+                return tiled_bound(sub)
+            return fused_bound(sub)[:2]
 
         out["bound_ms"], out["bound_by"], out["real_postings"] = (
             fused_bound(calls))
-    def run_kernel():
-        return [run_bucket(i) for i in range(len(calls))]
+    kernels = [bucket_kernel(eng.scorer_mode, c) for c in calls]
+
+    def run_kernel(idx=range(len(calls))):
+        return [run_bucket(i) for i in idx]
+
+    def run_plain(idx=range(len(calls))):
+        return [plain_one(i) for i in idx]
 
     got, out["kernel_ms"], out["kernel_ms_reps"] = timed(run_kernel)
     want, out["plain_ms"], out["plain_ms_reps"] = timed(run_plain)
     for i, ((gv, gd), (wv, wd)) in enumerate(zip(got, want)):
-        diff.check(gv, wv, f"{key} bucket {i} vals")
-        diff.check(gd, wd, f"{key} bucket {i} docs")
+        diffs[kernels[i]].check(gv, wv, f"{key} bucket {i} vals")
+        diffs[kernels[i]].check(gd, wd, f"{key} bucket {i} docs")
     del got, want
+    out["by_kernel"] = {}
+    for name in dict.fromkeys(kernels):
+        idx = [i for i, n in enumerate(kernels) if n == name]
+        _o, ms, _r = timed(lambda: run_kernel(idx))
+        _o, plain_ms, _r = timed(lambda: run_plain(idx))
+        bound_ms, bound_by = bound(idx)
+        out["by_kernel"][name] = {"buckets": len(idx), "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": bound_by}
     # where the kernel's time sits: each bucket alone, with its queries'
     # natural runs and real pairs
     out["per_bucket"] = []
@@ -1824,7 +1922,17 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
         out["per_bucket"].append(bucket_report(shape, ms, reps, *stats(i)))
         b = out["per_bucket"][-1]
         b.update(launch_report(eng.scorer_mode, calls[i], k))
-        log(f"{key} bucket [nq, n_blocks, block, r_c] {shape}: {ms:.3f} ms, "
+        if b["kernel"] == "fused_tiled":
+            # B1 on the same tables: bit for bit, and its time beside
+            s, t, p, _dl, _dv = calls[i]
+            tiled = run_bucket(i)
+            b1, b["b1_ms"], _r = timed(lambda: F.launch_fused(
+                (s.post_doc, s.post_val), *t, None, **p))
+            for j, part in enumerate(("vals", "docs")):
+                diffs["fused_tiled"].check(
+                    tiled[j], b1[j], f"{key} bucket {i} tiled vs B1 {part}")
+        log(f"{key} bucket [nq, n_blocks, block, r_c] {shape}: {ms:.3f} ms "
+            f"({b['kernel']}; B1 {b.get('b1_ms')} ms), "
             f"{b['threads']} threads, {b['blocks_per_sm']} blocks an SM, "
             f"{b['region']}, runs max {b['runs_max']} mean "
             f"{b['runs_mean']:.2f}, real pairs max {b['real_max']} mean "
@@ -1836,7 +1944,8 @@ def time_batch_buckets(eng, batch, k, diff, res, key):
         f"buckets, median of {TIMED_REPS} warm runs: kernel "
         f"{out['kernel_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
         f"bound {out['bound_ms']:.4f} ms, bit-identical; largest "
-        f"workspace {out['max_workspace_bytes']} B")
+        f"workspace {out['max_workspace_bytes']} B; by kernel "
+        f"{out['by_kernel']}")
     res[key] = out
 
 
@@ -2000,12 +2109,14 @@ def phase_main(device, diffs, sample=1024, seed=0):
     rec, restore = host_timers(eng)
     F.fused_search.launches = 0
     F.fused_search.launches_large_k = 0
+    F.fused_search.launches_tiled = 0
     t0 = time.perf_counter()
     outs = list(eng.search_stream(batches, k=k, depth=depth))
     sync()
     dt = time.perf_counter() - t0
     res["launches"] = F.fused_search.launches
     res["launches_large_k"] = F.fused_search.launches_large_k
+    res["launches_tiled"] = F.fused_search.launches_tiled
     restore()
     cells = [f[1][0] for f in rec["futs"]]
     res["dispatch_ms"] = float(np.median(rec["dispatch_ms"]))
@@ -2017,14 +2128,16 @@ def phase_main(device, diffs, sample=1024, seed=0):
         f"kernel launches, {res['layout']}; median ms a batch on the "
         f"host: dispatch {res['dispatch_ms']:.2f}, collect "
         f"{res['collect_ms']:.2f}")
-    if res["launches"] <= 0:
-        raise AssertionError("the main path launched no fused_search kernel")
+    if res["launches"] <= 0 or res["launches_tiled"] <= 0:
+        raise AssertionError("the main path launched no fused_search kernel "
+                             "or no tiled kernel")
     # the graphs' replays count what the eager step launches: one a
-    # bucket and batch
+    # bucket and batch, of the fused kernel or the tiled kernels
     res["buckets"] = sum(len(c) for f in rec["futs"] for c in f[1])
-    if res["launches"] != res["buckets"]:
+    if res["launches"] + res["launches_tiled"] != res["buckets"]:
         raise AssertionError(
-            f"{res['launches']} fused launches for {res['buckets']} buckets")
+            f"{res['launches']} fused and {res['launches_tiled']} tiled "
+            f"launches for {res['buckets']} buckets")
     # each pass is a short window that includes the depth-2 pipeline's
     # fill and drain: report the median and the spread over several
     qps = []
@@ -2063,7 +2176,7 @@ def phase_main(device, diffs, sample=1024, seed=0):
     res["sampled_compared"] = n_cmp
 
     # one batch's buckets at full size: kernel vs plain, timed
-    time_batch_buckets(eng, batches[0], k, diffs["fused_search"], res,
+    time_batch_buckets(eng, batches[0], k, diffs, res,
                        "batch_k10")
     return res, eng, batches, outs, texts
 
@@ -2178,7 +2291,7 @@ def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
     res["sampled_compared"] = n_cmp
 
     # one batch's buckets at k = candidates: large-k kernel vs plain
-    time_batch_buckets(eng, batches[0], kk, diffs["fused_search_large_k"],
+    time_batch_buckets(eng, batches[0], kk, diffs,
                        res, "batch_k64")
 
     # where a batch's time goes: search_rerank's stages, one batch at a
@@ -2285,7 +2398,7 @@ def reset_launches():
     from document_search_engine_tpu_torch.ops.rank import rank_kernel
 
     for attr in ("launches", "launches_large_k", "launches_dlim",
-                 "launches_dv"):
+                 "launches_dv", "launches_tiled"):
         setattr(F.fused_search, attr, 0)
     rank_kernel.launches = 0
 
@@ -2355,7 +2468,7 @@ def phase_paths(eng, batches, base_outs, diffs):
         log(f"{name}: {SERVING_PASSES} more passes: median "
             f"{r['serving_qps']:.1f} q/s, range {min(qps):.1f}.."
             f"{max(qps):.1f}")
-        time_batch_buckets(eng, batches[0], k, diffs[name], r, "batch")
+        time_batch_buckets(eng, batches[0], k, diffs, r, "batch")
         if scorer == "fused":
             # buckets that are still given a workspace
             r["workspace_buckets"] = sum(
@@ -2414,6 +2527,38 @@ def graph_bits(eng, batches, k, what):
         eng._collect(fut)
     return {"replays": len(batches), "graphs": len(g),
             "captures": g.captures}
+
+
+def tiled_vs_b1(eng, batches, k, what):
+    """The tiled kernels against the fused kernel (B1) under the step
+    graphs: the batches through their graphs (warm, as graph_bits left
+    them), each output equal bit for bit to the eager step run with
+    every bucket on B1 (ops/fused.py TILED_MIN_RC past any r_c). Returns
+    the tiled launches the replays counted."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops import fused as F
+
+    g = eng._graphs
+    t0 = F.fused_search.launches_tiled
+    futs, steps = [], []
+    for b in batches:
+        futs.append(dispatch(eng, b, k))
+        steps.append(eng._last_step)
+    tiled = F.fused_search.launches_tiled - t0
+    saved = F.TILED_MIN_RC
+    F.TILED_MIN_RC = 1 << 30
+    try:
+        for i, (fut, (step, inputs)) in enumerate(zip(futs, steps)):
+            want = step(*[torch.from_numpy(a).to(g.device) for a in inputs])
+            if not torch.equal(fut[0], want):
+                raise AssertionError(
+                    f"{what}: batch {i}: the graph's output (tiled kernels) "
+                    "differs from the eager step on B1")
+            eng._collect(fut)
+    finally:
+        F.TILED_MIN_RC = saved
+    return {"tiled_launches": tiled}
 
 
 def sleep_cycles_per_ms():
@@ -2547,6 +2692,13 @@ def phase_graphs(eng, batches):
         res["paths"][what] = graph_bits(eng, batches, k, what)
         log(f"graphs, {what}: {len(batches)} batches in flight through "
             "their graphs == the eager step, bit for bit")
+        if scorer == "fused" and split is None:
+            res["paths"][what]["vs_b1"] = tiled_vs_b1(eng, batches, k, what)
+            if res["paths"][what]["vs_b1"]["tiled_launches"] <= 0:
+                raise AssertionError(f"{what}: no bucket took the tiled "
+                                     "kernels")
+            log(f"graphs, {what}: the graphs' tiled buckets == B1's eager "
+                f"step, bit for bit, {res['paths'][what]['vs_b1']}")
     eng.scorer, eng.split_rows = None, None
     res["no_wait"] = graph_no_wait(eng, batches[0], K, "SearchEngine",
                                    res["cycles_per_ms"])
@@ -2924,6 +3076,7 @@ def counted_pass(eng, batches, k=K):
         "fused_search": F.fused_search.launches,
         "fused_search_large_k": F.fused_search.launches_large_k,
         "fused_search_split": F.fused_search.launches_dlim,
+        "fused_tiled": F.fused_search.launches_tiled,
         "rank_only": rank_kernel.launches,
     }
     return outs, counts, rec, dt
@@ -3002,18 +3155,27 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts,
         buckets = [len(f[1]) for f in rec["futs"]]
         r["buckets_per_batch"] = buckets
         r["launches"] = counts["fused_search"]
-        if r["launches"] != n * sum(buckets):
+        r["launches_tiled"] = counts["fused_tiled"]
+        if r["launches"] + r["launches_tiled"] != n * sum(buckets):
             raise AssertionError(
-                f"{n} shards: {r['launches']} fused launches, expected one "
-                f"per shard and bucket ({n} x {sum(buckets)})")
-        launches.setdefault("fused_search", 0)
-        launches["fused_search"] += r["launches"]
+                f"{n} shards: {r['launches']} fused and "
+                f"{r['launches_tiled']} tiled launches, expected one per "
+                f"shard and bucket ({n} x {sum(buckets)})")
+        for name in ("fused_search", "fused_tiled"):
+            launches[name] = launches.get(name, 0) + counts[name]
         r["dispatch_ms"] = float(np.median(rec["dispatch_ms"]))
         r["collect_ms"] = float(np.median(rec["collect_ms"]))
         r["serving_qps_counted_pass"] = nq / dt
         r["serving_qps"], r["serving_qps_passes"] = serve_timed(
             deng, batches, SHARDED_PASSES)
         r["graph_bits"] = graph_bits(deng, batches, K, f"{n} shards")
+        # a shard's regions shrink with its share of the postings: at
+        # several shards phase 4's queries may leave no bucket at
+        # TILED_MIN_RC
+        r["graph_bits"]["vs_b1"] = tiled_vs_b1(deng, batches, K,
+                                               f"{n} shards")
+        if n == 1 and r["graph_bits"]["vs_b1"]["tiled_launches"] <= 0:
+            raise AssertionError("1 shard: no bucket took the tiled kernels")
         r["graph_no_wait"] = graph_no_wait(
             deng, batches[0], K, f"{n} shards", cycles_per_ms)
         r["graph_dispatch"] = dispatch_split(deng, batches, K)
@@ -3027,7 +3189,9 @@ def phase_sharded(eng, batches, base_outs, rerank_outs, texts,
             f"; median {r['serving_qps']:.1f} q/s; host ms a batch: "
             f"dispatch {r['dispatch_ms']:.2f}, collect {r['collect_ms']:.2f}"
             f"; its {len(batches)} batches in flight == the eager step bit "
-            f"for bit; dispatch returned in "
+            f"for bit (and == B1's eager step: "
+            f"{r['graph_bits']['vs_b1']['tiled_launches']} tiled launches)"
+            f"; dispatch returned in "
             f"{r['graph_no_wait']['dispatch_ms']:.2f} ms with the stream "
             f"still busy; a warm dispatch plans "
             f"{r['graph_dispatch']['plan_ms']:.2f} ms, enqueues "
@@ -3930,19 +4094,23 @@ def phase_tools_ab(device):
     log(f"tools: roofline {len(rf['card'])} buckets, "
         f"{sum(a['ms'] for a in rf['card']):.4f} ms against "
         f"{sum(a['bound_ms'] for a in rf['card']):.4f} ms of bounds, "
-        f"dominant {[a['dominant'] for a in rf['card']]}, in "
+        f"dominant {[a.get('dominant') or a['kernel'] for a in rf['card']]}"
+        f", in "
         f"{res['roofline']['seconds']:.1f}s")
     return res
 
 
 def _roof_row(a):
-    """One roofline bucket for the tools line: its shape, launch, counts,
-    stage bounds (ms, by), bound and time."""
+    """One roofline bucket for the tools line: its shape, kernel, launch,
+    counts, stage bounds (ms, by; B1's buckets only), bound and time."""
     row = {key: a.get(key) for key in (
         "bucket", "threads", "blocks_per_sm", "placement", "real_pairs",
         "runs_max", "levels_max", "barriers", "stage_sum_ms", "bound_ms",
         "bound_by", "dominant", "ms")}
-    row["stages"] = {st: [v["ms"], v["by"]] for st, v in a["stages"].items()}
+    row["kernel"] = a.get("kernel", "fused_search")
+    if "stages" in a:
+        row["stages"] = {st: [v["ms"], v["by"]]
+                         for st, v in a["stages"].items()}
     return row
 
 
@@ -4011,6 +4179,15 @@ def kernel_entry(name, launches, diff, ms, plain_ms, bound_ms, bound_by,
         "max_abs_err": diff.max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def batch_entry(name, launches, diffs, batch):
+    """A kernels-line entry timed on one batch's buckets of that kernel
+    (time_batch_buckets' by_kernel; None where the batch has none)."""
+    b = batch["by_kernel"].get(name, {})
+    return kernel_entry(name, launches, diffs[name], b.get("ms"),
+                        b.get("plain_ms"), b.get("bound_ms"),
+                        b.get("bound_by"), None)
 
 
 def main() -> int:
@@ -4084,25 +4261,23 @@ def main() -> int:
     print("tools: " + json.dumps(tl), flush=True)
     b10, b64 = res["batch_k10"], rr["batch_k64"]
     kernels = [
-        kernel_entry("fused_search", res["launches"], diffs["fused_search"],
-                     b10["kernel_ms"], b10["plain_ms"], b10["bound_ms"],
-                     b10["bound_by"], None),
-        kernel_entry("fused_search_large_k", rr["launches_large_k"],
-                     diffs["fused_search_large_k"], b64["kernel_ms"],
-                     b64["plain_ms"], b64["bound_ms"], b64["bound_by"], None),
+        # each from its own buckets of the batch (time_batch_buckets'
+        # by_kernel): phase 4's k 10 batch serves B1 and the tiled kernels
+        batch_entry("fused_search", res["launches"], diffs, b10),
+        batch_entry("fused_search_large_k", rr["launches_large_k"], diffs,
+                    b64),
         kernel_entry("rerank_dots", rr["dots_launches"], diffs["rerank_dots"],
                      rr["dots_ms"], rr["dots_plain_ms"], rr["dots_bound_ms"],
                      rr["dots_bound_by"], rr["dots_library_ms"]),
+        batch_entry("fused_tiled", res["launches_tiled"], diffs, b10),
     ]
     for _scorer, _split, name in PATHS:
-        b = pp[name]["batch"]
         # the rank-only kernel's count: the xla_rank path's launches and
         # phase 9's packed step's
         launches = pp[name]["launches"] + (
             ref["launches"] if name == "rank_only" else 0)
-        kernels.append(kernel_entry(
-            name, launches, diffs[name], b["kernel_ms"],
-            b["plain_ms"], b["bound_ms"], b["bound_by"], None))
+        kernels.append(batch_entry(name, launches, diffs,
+                                   pp[name]["batch"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -138,6 +138,7 @@ def launch_counts() -> dict:
         "fused_search_large_k": fused_search.launches_large_k,
         "fused_search_split": fused_search.launches_dlim,
         "fused_search_dv": fused_search.launches_dv,
+        "fused_tiled": fused_search.launches_tiled,
         "rank_only": rank_kernel.launches,
     }
 

@@ -313,6 +313,102 @@ __device__ void block_topk(const u64* a, int n, int s, int k, int n_docs,
   }
 }
 
+// The k-th largest of the m > k unique composites comp[0, m), by radix
+// select: up to 8 passes from the top byte down, each a 256-bin histogram
+// of the composites that still match the digits fixed so far, ending
+// early once every match of the chosen bin is wanted (the bin's floor is
+// then the threshold). Exactly k composites are >= the result. Called by
+// every thread; returns the same value in each.
+template <int THREADS>
+__device__ u64 radix_kth(const u64* comp, int m, int k) {
+  __shared__ int hist[256];
+  __shared__ u64 prefix_sh;
+  __shared__ int need_sh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  u64 prefix = 0ull;
+  int need = k;  // the rank still sought among the matching composites
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
+    __syncthreads();
+    const u64 fixed = shift == 56 ? 0ull : (~0ull << (shift + 8));
+    for (int i = tid; i < m; i += THREADS) {
+      const u64 v = comp[i];
+      if ((v & fixed) == prefix) {
+        atomicAdd(&hist[static_cast<int>(v >> shift) & 255], 1);
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l owns bins [8 l, 8 l + 8); above = matches in higher bins
+      int mine = 0;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) mine += hist[lane * 8 + t];
+      int incl = mine;  // suffix sum over lanes >= l
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int got = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += got;
+      }
+      int above = incl - mine;
+      if (above < need && need <= incl) {  // exactly one lane
+        int d = lane * 8 + 7;
+        while (above + hist[d] < need) {
+          above += hist[d];
+          --d;
+        }
+        prefix_sh = prefix | (static_cast<u64>(d) << shift);
+        // the whole bin is wanted: its floor is the threshold (0 ends)
+        need_sh = need - above == hist[d] ? 0 : need - above;
+      }
+    }
+    __syncthreads();
+    prefix = prefix_sh;
+    need = need_sh;
+    if (need == 0) break;
+  }
+  return prefix;
+}
+
+// Gathers the composites of comp[0, m) that are >= kth into sel, in no
+// order, and returns how many (min(m, k) for the kth of radix_kth, or 0
+// with m <= k). Called by every thread; ends with a barrier.
+template <int THREADS>
+__device__ int gather_top(const u64* comp, int m, u64 kth, u64* sel) {
+  __shared__ int sel_sh;
+  if (threadIdx.x == 0) sel_sh = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += THREADS) {
+    const u64 v = comp[i];
+    if (v >= kth) sel[atomicAdd(&sel_sh, 1)] = v;
+  }
+  __syncthreads();
+  return sel_sh;
+}
+
+// Writes the m unique composites comp[0, m) that are >= kth (kth from
+// radix_kth, or 0 when m <= k) ranked into vals_out[0, k) and
+// docs_out[0, k) as (score, local doc), (-1, -1) past the last: each
+// survivor finds its rank by counting the larger ones.
+template <int THREADS>
+__device__ void emit_ranked(const u64* comp, int m, int k, u64 kth,
+                            int* vals_out, int* docs_out) {
+  __shared__ u64 sel[kMaxLargeK];
+  const int found = gather_top<THREADS>(comp, m, kth, sel);  // min(m, k)
+  for (int t = threadIdx.x; t < k; t += THREADS) {
+    if (t < found) {
+      const u64 v = sel[t];
+      int rank = 0;
+      for (int u = 0; u < found; ++u) rank += sel[u] > v;
+      vals_out[rank] = static_cast<int>(v >> 32);
+      docs_out[rank] = 0x7fffffff - static_cast<int>(static_cast<unsigned>(v));
+    } else {
+      vals_out[t] = -1;
+      docs_out[t] = -1;
+    }
+  }
+}
+
 // Top-k (k <= kMaxLargeK) of the sorted pairs a[0, n); the same contract
 // and outputs as block_topk. comp is scratch for n words (the buffer the
 // merge left free). Replaces the tournament branch of the TPU pipeline
@@ -320,27 +416,18 @@ __device__ void block_topk(const u64* a, int n, int s, int k, int n_docs,
 //   1. every run end's composite, once, into comp (unordered: a
 //      warp-aggregated counter hands out the places);
 //   2. when there are more than k, the k-th largest composite by radix
-//      select: up to 8 passes from the top byte down, each a 256-bin
-//      histogram of the composites that still match the digits fixed so
-//      far, ending early once every match of the chosen bin is wanted;
+//      select (radix_kth);
 //   3. the composites at or above it (exactly k, they are unique) are
-//      gathered, and each finds its rank by counting the larger ones.
+//      gathered, and each finds its rank by counting the larger ones
+//      (emit_ranked).
 template <int THREADS>
 __device__ void block_topk_large(const u64* a, int n, u64* comp, int s, int k,
                                  int n_docs, int kb, int* vals_out,
                                  int* docs_out) {
-  __shared__ int hist[256];
-  __shared__ u64 sel[kMaxLargeK];
-  __shared__ u64 prefix_sh;
-  __shared__ int need_sh;
   __shared__ int m_sh;
-  __shared__ int sel_sh;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  if (tid == 0) {
-    m_sh = 0;
-    sel_sh = 0;
-  }
+  if (tid == 0) m_sh = 0;
   __syncthreads();
   for (int base = 0; base < n; base += THREADS) {
     const int i = base + tid;
@@ -355,69 +442,9 @@ __device__ void block_topk_large(const u64* a, int n, u64* comp, int s, int k,
   }
   __syncthreads();
   const int m = m_sh;
-  u64 kth = 0ull;  // every composite is > 0: all of them when m <= k
-  if (m > k) {
-    u64 prefix = 0ull;
-    int need = k;  // the rank still sought among the matching composites
-    for (int shift = 56; shift >= 0; shift -= 8) {
-      for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
-      __syncthreads();
-      const u64 fixed = shift == 56 ? 0ull : (~0ull << (shift + 8));
-      for (int i = tid; i < m; i += THREADS) {
-        const u64 v = comp[i];
-        if ((v & fixed) == prefix) {
-          atomicAdd(&hist[static_cast<int>(v >> shift) & 255], 1);
-        }
-      }
-      __syncthreads();
-      if (tid < 32) {
-        // lane l owns bins [8 l, 8 l + 8); above = matches in higher bins
-        int mine = 0;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) mine += hist[lane * 8 + t];
-        int incl = mine;  // suffix sum over lanes >= l
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int got = __shfl_down_sync(0xffffffffu, incl, o);
-          if (lane + o < 32) incl += got;
-        }
-        int above = incl - mine;
-        if (above < need && need <= incl) {  // exactly one lane
-          int d = lane * 8 + 7;
-          while (above + hist[d] < need) {
-            above += hist[d];
-            --d;
-          }
-          prefix_sh = prefix | (static_cast<u64>(d) << shift);
-          // the whole bin is wanted: its floor is the threshold (0 ends)
-          need_sh = need - above == hist[d] ? 0 : need - above;
-        }
-      }
-      __syncthreads();
-      prefix = prefix_sh;
-      need = need_sh;
-      if (need == 0) break;
-    }
-    kth = prefix;
-  }
-  for (int i = tid; i < m; i += THREADS) {
-    const u64 v = comp[i];
-    if (v >= kth) sel[atomicAdd(&sel_sh, 1)] = v;
-  }
-  __syncthreads();
-  const int found = sel_sh;  // min(m, k)
-  for (int t = tid; t < k; t += THREADS) {
-    if (t < found) {
-      const u64 v = sel[t];
-      int rank = 0;
-      for (int u = 0; u < found; ++u) rank += sel[u] > v;
-      vals_out[rank] = static_cast<int>(v >> 32);
-      docs_out[rank] = 0x7fffffff - static_cast<int>(static_cast<unsigned>(v));
-    } else {
-      vals_out[t] = -1;
-      docs_out[t] = -1;
-    }
-  }
+  // every composite is > 0: all of them when m <= k
+  const u64 kth = m > k ? radix_kth<THREADS>(comp, m, k) : 0ull;
+  emit_ranked<THREADS>(comp, m, k, kth, vals_out, docs_out);
 }
 
 }  // namespace dse

@@ -48,8 +48,10 @@ stream's worker thread),
 (slot slicing, row lookup, planning, layout cells, array fill),
 `dispatch.enqueue` (staging, copies, the graph's replay or capture, the
 copy-out), `collect.wait` (out.cpu(): the host blocked on the card and
-the D2H) and `collect.assemble` (the rest of _collect), and the counter
-`step.pairs` (the (query, posting) pairs of the batch's plan). Inside
+the D2H) and `collect.assemble` (the rest of _collect), and the counters
+`step.pairs` (the (query, posting) pairs of the batch's plan) and
+`step.tiled_pairs` (those of them in the buckets that the fused scorer
+serves by the tiled kernels, ops/tiled.py tiled_route). Inside
 `prof.trace` each span is also a record_function event of the trace.
 """
 from __future__ import annotations
@@ -70,6 +72,7 @@ from ..ops.schedule import (
     plan_batch,
     split_pieces,
 )
+from ..ops.tiled import tiled_route
 from ..oracle import spec
 from ..utils import prof
 from .query import QueryFrontend, segment_rows
@@ -783,9 +786,9 @@ class SearchEngine:
         """Shared by preplan and _dispatch: the segment's natural plan
         and, when splitting, its piece table. Returns (rows_p, a_p, cols,
         qidx, pno, natural, pairs); cols/qidx/pno are None when the plan
-        rows are the queries themselves; pairs is the (query, posting)
-        pairs the plan asks the kernels to score (a split query's
-        pieces sum to its postings)."""
+        rows are the queries themselves; pairs is (nq,) int64, the
+        (query, posting) pairs the plan asks the kernels to score for
+        each query (a split query's pieces sum to its postings)."""
         compact = mode.startswith("fused") and k <= MAX_K
         # empty segments have no postings, no quantile table (T = 0) and
         # nothing to split; they take the unsplit plan (zero blocks)
@@ -794,9 +797,10 @@ class SearchEngine:
                 host.indptr, rows, found, families=families,
                 min_blocks=self.plan_min_blocks, compact=compact,
             )
-            return rows, a_seg, None, None, None, natural, 0
+            return (rows, a_seg, None, None, None, natural,
+                    np.zeros(rows.shape[0], np.int64))
         lens = (host.indptr[rows + 1] - host.indptr[rows]) * found
-        pairs = int(lens.sum())
+        pairs = lens.sum(axis=1, dtype=np.int64)
         if not self._split_active(mode, k, families):
             natural = plan_batch(
                 host.indptr, rows, found, families=families,
@@ -896,17 +900,17 @@ class SearchEngine:
             idx_map = []  # per segment: list of (plan-row indices, bq)
             piece_maps = []  # per segment: None | (qidx, pno, mmax, rows)
             r_subs, a_subs, c_subs = [], [], []
-            pairs = 0
+            pairs = tiled_pairs = 0
             for si, host, rows, found, a_seg in self._segment_inputs(
                 slot_h, coeff, rows_g, found_g
             ):
-                rows_p, a_p, cols, qidx, pno, natural, n_pairs = (
+                rows_p, a_p, cols, qidx, pno, natural, q_pairs = (
                     self._segment_plan(
                         si, host, self.segments[si][1], rows, found, a_seg,
                         families, mode, k,
                     )
                 )
-                pairs += n_pairs
+                pairs += int(q_pairs.sum())
                 n_rows_p = rows_p.shape[0]
                 if self.plan_cache is not None:
                     key = self._plan_key(si, host, s, k, mode, families)
@@ -938,6 +942,9 @@ class SearchEngine:
                         c_subs.append(c_sub)
                     buckets.append((n_blocks, block, bq, r_c))
                     idxs.append((idx, bq))
+                    if tiled_route(mode=mode, k=k, split=split, r_c=r_c,
+                                   n_blocks=n_blocks, s=s):
+                        tiled_pairs += int(q_pairs[idx].sum())
                 plan.append((host.n_docs, s, tuple(buckets)))
                 idx_map.append(idxs)
                 piece_maps.append(
@@ -971,6 +978,7 @@ class SearchEngine:
                 inputs += (np.concatenate(c_subs),)
             if self._graphs is not None:  # dispatch_span's rule
                 prof.count("step.pairs", pairs)
+                prof.count("step.tiled_pairs", tiled_pairs)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(

@@ -124,7 +124,7 @@ def _counters():
 
     return ((fused_search, "launches"), (fused_search, "launches_large_k"),
             (fused_search, "launches_dlim"), (fused_search, "launches_dv"),
-            (rank_kernel, "launches"))
+            (rank_kernel, "launches"), (fused_search, "launches_tiled"))
 
 
 def launch_counts() -> tuple:

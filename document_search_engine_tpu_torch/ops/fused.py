@@ -10,15 +10,19 @@ k 17..128 tournament branch (csrc/fused_search.cu, csrc/rank.cuh). The
 same kernel's interleaved-plane load stage serves ops/fused_dv.py. The
 launch's thread count follows the bucket's region (launch_threads), and
 the kernel's plan table and load stage have plain mirrors here
-(load_units, load_region, placement) for the CPU tests.
+(load_units, load_region, placement) for the CPU tests. The heavy
+buckets (ops/tiled.py tiled_route: r_c >= TILED_MIN_RC, no doc limits,
+a tile block that fits) go to the tiled kernels of ops/tiled.py
+instead, from the same plan tables.
 
 The kernel library (every csrc/*.cu, the rank-only kernel of ops/rank.py
 and the rerank dots of ops/rerank.py included) is compiled by nvcc at
 first use into `_build/` next to this package, keyed by a hash of the
 sources and flags, and loaded with ctypes (a plain C interface: no
 PyTorch headers, a few seconds of build). `fused_search` launches it for
-CUDA tensors and takes the plain PyTorch version (ops/packed.py) for CPU
-tensors; there is no other path.
+CUDA tensors and takes the plain PyTorch version (ops/packed.py, or the
+tiled kernels' mirror in ops/tiled.py) for CPU tensors; there is no
+other path.
 """
 from __future__ import annotations
 
@@ -61,6 +65,15 @@ MAX_K = 128
 # r_c 16 and 3 at r_c 32 (shared memory is the limit), regions of 64
 # rows and more take one block an SM and spread their merge over 1024.
 THREADS_BY_RC = ((32, 256), (None, 1024))
+
+# Buckets of r_c >= TILED_MIN_RC rows without doc limits go to the tiled
+# kernels (ops/tiled.py, csrc/fused_tiled.cu): a doc-range tile's sums in
+# a shared-memory accumulator instead of the merge of every pair through
+# the workspace. Chosen by an A/B of both benchmark cells' buckets on the
+# card (PERF.md §6): below 256 rows the fused kernel's merges are
+# short, and the tiled kernels' walk over every tile of the index (some
+# 0.1 ms a bucket at 8.8M docs) costs more than they save.
+TILED_MIN_RC = 256
 
 # The most dynamic shared memory a launch asks for (csrc/rank.cuh
 # kSmemMaxBytes; the library's dse_smem_max_bytes()).
@@ -389,6 +402,14 @@ def _lib():
             p, p, p, p,  # workspace, vals, docs, stream
         ]
         lib.dse_fused_blocks_per_sm.argtypes = [i, i, i, i]
+        lib.dse_tiled_search.argtypes = [
+            p, p, p, p, p, p,  # planes, plan tables
+            i, i, i, i, i, i,  # nq, n_blocks, block, s, k, n_docs
+            f, f,  # scale, clip
+            i,  # r_c
+            p, p, p, p,  # survivors, vals, docs, stream
+        ]
+        lib.dse_tiled_blocks_per_sm.argtypes = [i, i]
         lib.dse_rank.argtypes = [
             p, p,  # d_key, ci
             i, i, i, i, i, i,  # nq, c, run, s, k, n_docs
@@ -401,7 +422,8 @@ def _lib():
             p, p, p,  # dots, cand_ssq, stream
         ]
         for fn in (lib.dse_fused_search, lib.dse_fused_search_dv,
-                   lib.dse_fused_blocks_per_sm, lib.dse_rank,
+                   lib.dse_fused_blocks_per_sm, lib.dse_tiled_search,
+                   lib.dse_tiled_blocks_per_sm, lib.dse_rank,
                    lib.dse_rerank_dots):
             fn.restype = i
         lib.dse_error_string.argtypes = [i]
@@ -535,29 +557,51 @@ def fused_search(
     (doc-range splitting): per plan row, postings whose doc lies outside
     [d_lo, d_hi) contribute nothing.
 
-    CUDA tensors launch the kernel on the current stream and count one
-    launch: in fused_search.launches_dlim when dlim is given, else in
+    A bucket that ops/tiled.py tiled_route takes (r_c >= TILED_MIN_RC,
+    no dlim, a tile block that fits) goes to ops/tiled.py tiled_search:
+    the tiled kernels on CUDA tensors, their plain mirror on CPU tensors.
+    Every other bucket: CUDA tensors launch the fused kernel on the
+    current stream; CPU tensors take the plain version (ops/packed.py
+    search_packed_tables), which ignores dstrow, r_c and key_bits — they
+    only shape the kernel's buffer, not the result.
+
+    On CUDA tensors each call counts one launch of the kernel it ran: in
+    fused_search.launches_tiled for the tiled kernels; for the fused
+    kernel in fused_search.launches_dlim when dlim is given, else in
     fused_search.launches for k <= 16 and fused_search.launches_large_k
-    for 16 < k <= 128. CPU tensors take the plain version
-    (ops/packed.py search_packed_tables), which ignores dstrow, r_c and
-    key_bits — they only shape the kernel's buffer, not the result."""
+    for 16 < k <= 128."""
+    from .tiled import tiled_route, tiled_search
+
     dev = post_doc.device
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_search: unsupported device {dev}")
+    tiled = tiled_route(mode="fused", k=k, split=dlim is not None, r_c=r_c,
+                        n_blocks=n_blocks, s=s)
+    if tiled:
+        out = tiled_search(
+            post_doc, post_val, srcrow, rem, abits, dstrow,
+            n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
+            scale=scale, clip=clip, r_c=r_c,
+        )
+    elif dev.type == "cpu":
         from .packed import search_packed_tables
 
-        return search_packed_tables(
+        out = search_packed_tables(
             post_doc, post_val, srcrow, rem, abits, scale, clip, 0,
             n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
             dlim=dlim,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_search: unsupported device {dev}")
-    out = launch_fused(
-        (post_doc, post_val), srcrow, rem, abits, dstrow, dlim,
-        n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
-        scale=scale, clip=clip, r_c=r_c, key_bits=key_bits,
-    )
-    if dlim is not None:
+    else:
+        out = launch_fused(
+            (post_doc, post_val), srcrow, rem, abits, dstrow, dlim,
+            n_blocks=n_blocks, block=block, s=s, k=k, n_docs=n_docs,
+            scale=scale, clip=clip, r_c=r_c, key_bits=key_bits,
+        )
+    if dev.type == "cpu":
+        return out
+    if tiled:
+        fused_search.launches_tiled += 1
+    elif dlim is not None:
         fused_search.launches_dlim += 1
     elif k <= SMALL_K:
         fused_search.launches += 1
@@ -569,4 +613,5 @@ def fused_search(
 fused_search.launches = 0
 fused_search.launches_large_k = 0
 fused_search.launches_dlim = 0
+fused_search.launches_tiled = 0
 fused_search.launches_dv = 0  # counted by ops/fused_dv.py fused_search_dv

@@ -74,6 +74,17 @@ Two accounts:
   compared by their total real postings only: padding rows and skipped
   blocks read none.
 
+The buckets that `fused_search` serves by the tiled kernels
+(`ops/tiled.py tiled_route`: r_c >= TILED_MIN_RC and a tile block that
+fits; csrc/fused_tiled.cu)
+have none of these stages: each is one row of its own (kernel
+"fused_tiled"), timed whole, with the demand of its real pairs: 8 B a
+pair from device memory (doc and value), the plan tables, the chunks'
+survivors written and read and the output; one 8-byte shared-memory
+atomic a pair (its accumulator read and written); one int32 add and two
+f32 multiplies a pair. The per-stage table describes only the buckets
+that the fused kernel (B1) still runs.
+
 Gates (AssertionError): the natural plan's real postings equal the
 captured buckets' sum; no bucket on the card measures below its bound
 (such a reading means a count is wrong).
@@ -98,6 +109,7 @@ import torch
 from .. import bench as B
 from ..config import IndexConfig, ScoringConfig
 from ..ops import fused as F
+from ..ops import tiled as T
 from ..ops.plan_cache import PlanLayoutCache
 from ..ops.schedule import FUSED_FAMILIES, plan_batch
 
@@ -344,12 +356,37 @@ def bucket_account(counts: list, n_blocks: int, block: int, r_c: int,
     }
 
 
-def host_account(indptr, rows, plans, k, pk) -> list:
+def tiled_account(pairs: int, bq: int, n_blocks: int, block: int,
+                  r_c: int, s: int, n_docs: int, k: int, pk: dict) -> dict:
+    """One bucket that the tiled kernels serve, whole: the demand of its
+    real pairs, plan tables, survivors and output, and its bound."""
+    chunks = T.tiled_chunks(n_docs)
+    dem = {"hbm": 8 * pairs + 16 * n_blocks * bq + 16 * k * chunks * bq
+           + 8 * k * bq,
+           "smem": 8 * pairs, "int32": pairs, "f32": 2 * pairs}
+    t = {res: dem[res] / pk[res] * 1e3 for res in RESOURCES}
+    by = max(t, key=t.get)
+    return {"bucket": [bq, n_blocks, block, r_c], "kernel": "fused_tiled",
+            "threads": T.TILED_THREADS, "s": s, "chunks": chunks,
+            "real_pairs": pairs, "demand": dem, "bound_ms": t[by],
+            "bound_by": by}
+
+
+def host_account(indptr, rows, plans, k, pk, n_docs) -> list:
     """The natural plan's buckets, from the postings lengths alone."""
     lens = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
-    return [bucket_account([host_counts(lens[q], block, k) for q in idx],
-                           n_blocks, block, r_c, k, pk)
-            for idx, n_blocks, block, r_c in plans]
+    out = []
+    for idx, n_blocks, block, r_c in plans:
+        if T.tiled_route(mode="fused", k=k, split=False, r_c=r_c,
+                         n_blocks=n_blocks, s=rows.shape[1]):
+            out.append(tiled_account(int(lens[idx].sum()), len(idx),
+                                     n_blocks, block, r_c, rows.shape[1],
+                                     n_docs, k, pk))
+        else:
+            out.append(bucket_account(
+                [host_counts(lens[q], block, k) for q in idx], n_blocks,
+                block, r_c, k, pk))
+    return out
 
 
 # --------------------------------------------------------- card account
@@ -435,11 +472,32 @@ def time_call(seg, tabs, p) -> float:
 
 
 def card_account(calls, k, pk, dev) -> list:
-    """Each captured bucket counted exactly from its loaded region and,
-    on the card, timed; raises if a bucket measures below its bound."""
+    """Each captured bucket counted exactly (a tiled one from its plan
+    tables' runs, B1's from its loaded region) and, on the card, timed;
+    raises if a bucket measures below its bound."""
     planes_h = {}
     out = []
     for seg, tabs, p in calls:
+        if T.tiled_route(mode="fused", k=p["k"], split=False, r_c=p["r_c"],
+                         n_blocks=p["n_blocks"], s=p["s"]):
+            runs = T.tiled_runs(*(t.cpu().numpy() for t in tabs),
+                                block=p["block"], r_c=p["r_c"])
+            acc = tiled_account(
+                sum(int(r["off"][-1]) for r in runs), int(tabs[0].shape[0]),
+                p["n_blocks"], p["block"], p["r_c"], p["s"], p["n_docs"], k,
+                pk)
+            acc["ms"] = acc["blocks_per_sm"] = None
+            if dev.type == "cuda":
+                acc["ms"] = time_call(seg, tabs, p)
+                acc["blocks_per_sm"] = T.tiled_blocks_per_sm(p["n_blocks"],
+                                                             p["s"])
+                if acc["ms"] < acc["bound_ms"]:
+                    raise AssertionError(
+                        f"roofline: tiled bucket {acc['bucket']} measures "
+                        f"{acc['ms']:.4f} ms, below its bound "
+                        f"{acc['bound_ms']:.4f} ms: a count is wrong")
+            out.append(acc)
+            continue
         key = id(seg)
         if key not in planes_h:
             planes_h[key] = (seg.post_doc.cpu().numpy(),
@@ -469,6 +527,10 @@ def card_account(calls, k, pk, dev) -> list:
 
 # ---------------------------------------------------------------- print
 def print_buckets(title, accs) -> None:
+    """B1's buckets stage by stage, then the tiled kernels' buckets, each
+    whole."""
+    tiled = [a for a in accs if a.get("kernel") == "fused_tiled"]
+    accs = [a for a in accs if a.get("kernel") != "fused_tiled"]
     log(title)
     log(f"{'bucket [bq, nb, block, r_c]':>28} {'thr':>5} {'b/SM':>4} "
         f"{'place s/f/w':>13} {'pairs':>10} {'runs':>4} {'bar':>8} "
@@ -490,6 +552,20 @@ def print_buckets(title, accs) -> None:
             + f" {a['stage_sum_ms']:8.4f} {a['bound_ms']:8.4f} "
             f"{a['bound_by']:>5} {ms:>8} {ratio:>7} {ratio_sum:>7} "
             f"{a['dominant']:>8}")
+    if not tiled:
+        return
+    log("  tiled kernels (csrc/fused_tiled.cu), each bucket whole:")
+    log(f"{'bucket [bq, nb, block, r_c]':>28} {'thr':>5} {'b/SM':>4} "
+        f"{'chunks':>6} {'pairs':>10} {'bound':>8} {'by':>5} {'ms':>8} "
+        f"{'ms/bnd':>7}")
+    for a in tiled:
+        ms = "n/a" if a.get("ms") is None else f"{a['ms']:.4f}"
+        ratio = ("" if a.get("ms") is None
+                 else f"{a['ms'] / a['bound_ms']:.1f}")
+        log(f"{str(a['bucket']):>28} {a['threads']:>5} "
+            f"{str(a.get('blocks_per_sm', '')):>4} {a['chunks']:>6} "
+            f"{a['real_pairs']:>10} {a['bound_ms']:8.4f} {a['bound_by']:>5} "
+            f"{ms:>8} {ratio:>7}")
 
 
 def main(device=None, env=None, built=None) -> dict:
@@ -522,7 +598,7 @@ def main(device=None, env=None, built=None) -> dict:
     log(f"workload: nq={nq} tpq={tpq} vocab={vocab} docs={n_docs}")
     log(f"postings/query: mean {lens.mean():,.0f}  p50 "
         f"{np.median(lens):,.0f}  max {lens.max():,}")
-    host = host_account(indptr, rows, plans, K, pk)
+    host = host_account(indptr, rows, plans, K, pk, n_docs)
     natural = int(lens.sum())
     print_buckets(f"host account, natural plan ({len(plans)} buckets; "
                   f"{time.perf_counter() - t0:.1f}s):", host)

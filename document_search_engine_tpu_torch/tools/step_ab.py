@@ -35,6 +35,9 @@ times first):
              reads only the slot bits of dstrow, so a coarser granule
              only sizes regions larger: the results stay bit-identical
              (tests/test_torch_tools_step_ab.py holds them on the CPU).
+  tiledN     ops/fused.py TILED_MIN_RC = N: the least region rows r_c
+             that the tiled kernels serve (default 256; the threshold's
+             A/B, PERF.md §6)
 
 The TPU's levers have no counterpart and exit with the reason: depthN
 (the port keeps no DMA ring: every block of a query is in flight at
@@ -44,9 +47,9 @@ bitonic network), ukeys and noukeys (the port always keys (doc << kb) |
 slot, ops/fused.py key_bits_for). An unknown lever exits too, before the
 index is built.
 
-THREADS_BY_RC, GRANULE_ROWS and plan_min_blocks are read when a step is
-captured and are not part of a graph's key, as the TPU's module
-constants were not part of its compile cache's. So every apply and every
+THREADS_BY_RC, GRANULE_ROWS, TILED_MIN_RC and plan_min_blocks are read
+when a step is captured and are not part of a graph's key, as the TPU's
+module constants were not part of its compile cache's. So every apply and every
 restore drops the engine's graphs and takes a fresh plan-layout cache
 (the counterpart of the original's jax.clear_caches()), and each setting
 must capture at least one graph. Gates the original lacks: every
@@ -90,7 +93,8 @@ TPU_ONLY = (
     (r"(no)?ukeys", "the port always keys (doc << kb) | slot "
      "(ops/fused.py key_bits_for)"),
 )
-LEVER = re.compile(r"(block|split|minblocks|threads|granule)(\d+)|dv")
+LEVER = re.compile(
+    r"(block|split|minblocks|threads|granule|tiled)(\d+)|dv")
 
 
 def log(msg):
@@ -115,7 +119,7 @@ def snapshot(eng) -> dict:
     """The module constants and engine fields the levers change."""
     return dict(
         threads=F.THREADS_BY_RC, granule=(F.GRANULE_ROWS, S.GRANULE_ROWS),
-        families=eng.block_families, scorer=eng.scorer,
+        tiled=F.TILED_MIN_RC, families=eng.block_families, scorer=eng.scorer,
         split=eng.split_rows, min_blocks=eng.plan_min_blocks,
     )
 
@@ -123,6 +127,7 @@ def snapshot(eng) -> dict:
 def restore(eng, snap: dict) -> None:
     F.THREADS_BY_RC = snap["threads"]
     F.GRANULE_ROWS, S.GRANULE_ROWS = snap["granule"]
+    F.TILED_MIN_RC = snap["tiled"]
     eng.block_families = snap["families"]
     eng.scorer = snap["scorer"]
     eng.split_rows = snap["split"]
@@ -154,6 +159,8 @@ def apply(eng, name: str) -> None:
             eng.plan_min_blocks = n
         elif what == "threads":
             F.THREADS_BY_RC = ((n, 256), (None, 1024))
+        elif what == "tiled":
+            F.TILED_MIN_RC = n
         else:
             F.GRANULE_ROWS = S.GRANULE_ROWS = n
     fresh_step(eng)

@@ -35,8 +35,10 @@ serving path's spans, one of each a batch of a search_stream:
     collect.wait           main             out.cpu(): the card, the D2H
     collect.assemble       main             the rest of _collect
 
-and the counter `step.pairs`, the (query, posting) pairs a batch's plan
-asks the kernels to score (counted under dispatch.plan).
+and the counters `step.pairs`, the (query, posting) pairs a batch's plan
+asks the kernels to score, and `step.tiled_pairs`, those of them in the
+buckets that the tiled kernels serve (ops/tiled.py tiled_route); both
+counted under dispatch.plan.
 
 The registry is shared by threads (search_stream's analysis runs on a
 worker while the main thread dispatches), so every update and read of

@@ -250,3 +250,23 @@ def test_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         R.main(env=dict(SMALL, ROOF_CARD="0"))
+
+
+@pytest.mark.parametrize("min_rc", [8, 32])
+def test_tiled_buckets_are_rows_of_their_own(monkeypatch, built, min_rc):
+    """With the tiled threshold lowered into this size's buckets, the
+    buckets that route to the tiled kernels are rows of their own
+    (no B1 stages), the others keep B1's stage table, and both accounts
+    still hold every real posting."""
+    monkeypatch.setattr(F, "TILED_MIN_RC", min_rc)
+    out = quiet(R.main, device="cpu", env=SMALL, built=built)
+    natural = out["real_postings"]["natural"]
+    assert out["real_postings"]["captured"] == natural
+    for acc in (out["host"], out["card"]):
+        assert sum(a["real_pairs"] for a in acc) == natural
+        tiled = [a for a in acc if a.get("kernel") == "fused_tiled"]
+        assert tiled
+        for a in acc:
+            assert (a["bucket"][3] >= F.TILED_MIN_RC) == (a in tiled)
+            assert a["bound_ms"] > 0
+            assert ("stages" in a) == (a not in tiled)

@@ -143,6 +143,30 @@ def test_restored_when_a_setting_raises(built, monkeypatch):
     assert F.GRANULE_ROWS == S.GRANULE_ROWS == 1
 
 
+@pytest.mark.parametrize("lever,tiled", [("tiled8", True),
+                                         ("tiled1048576", False)])
+def test_the_tiled_threshold_lever(built, monkeypatch, lever, tiled):
+    """tiledN sets ops/fused.py TILED_MIN_RC for its setting: at 8 the
+    batch's buckets take the tiled kernels (their plain mirror here), at
+    2**20 none does; the answers equal the baseline's and the constant
+    is restored."""
+    from document_search_engine_tpu_torch.ops import tiled as T
+
+    seen = []
+    real = T.tiled_search_plain
+
+    def counting(*a, **kw):
+        seen.append(F.TILED_MIN_RC)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(T, "tiled_search_plain", counting)
+    before = F.TILED_MIN_RC
+    out = A.main(device="cpu", env=dict(TINY, STEP_AB=lever), built=built)
+    assert [r["name"] for r in out["results"]] == ["baseline", lever]
+    assert F.TILED_MIN_RC == before
+    assert (int(lever[5:]) in seen) == tiled
+
+
 @pytest.mark.parametrize("granule", [1, 2, 4])
 def test_kernel_mirror_at_a_coarser_granule(built, monkeypatch, granule):
     """The kernel's load stage and rank stage, mirrored, over every
