@@ -3,10 +3,12 @@ program's place, in the nearest precision below the configuration's.
 
     python3 -m benchmark.control --workload <cell> --seeds 1,2,3
 
-For each seed it draws the cell's corpus and pool as a run does, ranks the
-sampled queries with the reference in bfloat16 (the configuration states
-float32 values and contributions) as the program's answers, and judges
-them with run.py's comparison against the float32 reference. It prints
+For each seed it draws the cell's corpus and pool as a run does, and the
+live documents as the configuration's set-up would leave them
+(setups/<name>.py `alive`), ranks the sampled queries with the reference
+over those documents in bfloat16 (the configuration states float32
+values and contributions) as the program's answers, and judges them with
+run.py's comparison against the float32 reference. It prints
 one JSON line a seed with the numbers compared; a sound run of the program
 reads wrong_answers 0, and the check is only worth its name if the
 control reads more.
@@ -28,6 +30,7 @@ def control_reading(reg, name: str, seed: int, device) -> dict:
     sampled query once."""
     from .gen.corpus import draw_corpus
     from .gen.queries import Pool
+    from .registry import setup_of
 
     wl = reg.workload(name)
     cfg = reg.config(wl["config"])
@@ -36,7 +39,9 @@ def control_reading(reg, name: str, seed: int, device) -> dict:
     k = int(traffic["k"])
     corpus = draw_corpus(cfg, seed, device, texts=False)
     pool = Pool(cfg, traffic, corpus, seed)
-    ref = Reference(corpus, cfg["scoring"], cfg["max_query_terms"], device)
+    alive = reg.alive(setup_of(cfg)["name"])(cfg, corpus.n_docs, seed)
+    ref = Reference(corpus, cfg["scoring"], cfg["max_query_terms"], device,
+                    alive=alive)
     texts = [pool.text(q) for q in pool.sample]
     ids, scores = ref.topk(texts, k)
     c_ids, c_scores = ref.topk(texts, k, precision=CONTROL_PRECISION)

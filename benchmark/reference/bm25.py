@@ -9,6 +9,12 @@ hash are one term, as for the program), df, N, avgdl, each posting's BM25
 value and each (query, doc) integer score, and ranks by (score desc, doc
 id asc), keeping docs with a score above 0 and padding with (-1, -1).
 
+`alive`, where the set-up deleted documents, is the (n_docs,) bool mask
+of the live ones: N is then their count, avgdl their tokens over N, df
+counts live documents only, and a dead document's postings add nothing
+and it is never returned (DESIGN.md section 4: a delete updates df, N
+and the total length). With None every drawn document is live.
+
 `precision` is the float type of the value and contribution arithmetic:
 "float32" is the spec's, "bfloat16" the lower precision that the
 correctness check's control uses. The corpus is read in blocks of
@@ -47,7 +53,7 @@ class Reference:
     """The reference over one drawn corpus (module docstring)."""
 
     def __init__(self, corpus, scoring: dict, max_query_terms: int,
-                 device, block_tokens: int = 1 << 25):
+                 device, alive=None, block_tokens: int = 1 << 25):
         if scoring["kind"] != "bm25":
             raise ValueError(f"the BM25 reference cannot score "
                              f"{scoring['kind']!r}")
@@ -62,7 +68,17 @@ class Reference:
         _, self.cls_of_index = np.unique(hashes, return_inverse=True)
         self.n_terms = int(self.cls_of_index.max()) + 1
         self.n_docs = corpus.n_docs
-        self.total_len = int(corpus.lens.sum())
+        if alive is None:
+            self.alive = None
+            self.n_live = self.n_docs
+            self.total_len = int(corpus.lens.sum())
+        else:
+            self.alive = np.asarray(alive, bool)
+            if self.alive.shape != (self.n_docs,):
+                raise ValueError(f"alive has shape {self.alive.shape}, "
+                                 f"not ({self.n_docs},)")
+            self.n_live = int(self.alive.sum())
+            self.total_len = int(corpus.lens[self.alive].sum())
 
     def parse(self, text: str):
         """(terms, qtf): a query's distinct term ids and their counts."""
@@ -73,13 +89,15 @@ class Reference:
         return np.unique(ids, return_counts=True)
 
     def _postings(self, wanted: np.ndarray):
-        """df (n_terms,) over the whole corpus, and the postings of the
-        wanted terms as CSR by term: (ptr, doc, tf) on the device."""
+        """df (n_terms,) over the live documents, and their postings of
+        the wanted terms as CSR by term: (ptr, doc, tf) on the device."""
         c, dev = self.corpus, self.device
         cls_of_rank = torch.from_numpy(
             self.cls_of_index[c.perm]).to(dev)
         want = torch.from_numpy(wanted).to(dev)
         lens = torch.from_numpy(c.lens).to(dev)
+        live = (None if self.alive is None
+                else torch.from_numpy(self.alive).to(dev))
         ptr = np.zeros(c.n_docs + 1, np.int64)
         np.cumsum(c.lens, out=ptr[1:])
         nt = self.n_terms
@@ -97,6 +115,9 @@ class Reference:
             key, _ = torch.sort(doc * nt + term)
             key, tf = torch.unique_consecutive(key, return_counts=True)
             term, doc = key % nt, key // nt + d0
+            if live is not None:
+                keep = live[doc]
+                term, doc, tf = term[keep], doc[keep], tf[keep]
             df += torch.bincount(term, minlength=nt)
             m = want[term]
             parts.append((term[m], doc[m], tf[m]))
@@ -114,7 +135,7 @@ class Reference:
         """BM25 value of each posting, in the spec's operation order:
         tf (k1 + 1) / (tf + (c0 + c1 dl))."""
         c0, c1 = spec.len_coeffs(self.k1, self.b,
-                                 spec.avgdl(self.total_len, self.n_docs))
+                                 spec.avgdl(self.total_len, self.n_live))
         lens = torch.from_numpy(self.corpus.lens).to(self.device)
         tff = tf.to(dtype)
         dl = lens[doc].to(dtype)
@@ -142,7 +163,7 @@ class Reference:
             block = parsed[q0:q0 + qb]
             pq, pt, pa = [], [], []
             for i, (terms, qtf) in enumerate(block):
-                idf = spec.idf_bm25(n, df[terms])
+                idf = spec.idf_bm25(self.n_live, df[terms])
                 a = (qtf.astype(np.float32) * idf).astype(np.float32)
                 a = np.where(idf == 0, np.float32(0), a)
                 pq.append(np.full(len(terms), i))

@@ -8,10 +8,13 @@ metric. Under the benchmark's folder:
   `loops/<its "loop">.py` (a `serve` function);
 - the plain reference of a configuration is `reference/<its scoring
   "kind">.py` (a `Reference` class);
+- how a configuration's index is set up is `setups/<its "setup"
+  "name">.py` (a `build` function and an `alive` function), single.py
+  where the configuration has no `setup`;
 - a per-layer metric's reader is `metrics/<name>.py` (a `read` function).
 
-So a later change adds a deployment, a scoring kind, a mix, a loop or a
-metric by adding files and entries, never by editing one.
+So a later change adds a deployment, a scoring kind, a mix, a loop, a
+set-up or a metric by adding files and entries, never by editing one.
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+SINGLE = {"name": "single"}
+
+
+def setup_of(cfg: dict) -> dict:
+    """A configuration's `setup`: its name and parameters."""
+    return cfg.get("setup", SINGLE)
 
 
 class Registry:
@@ -92,3 +101,15 @@ class Registry:
     def reference(self, kind: str):
         """The Reference class of reference/<kind>.py."""
         return self._module("reference", kind).Reference
+
+    def setup(self, name: str):
+        """The build(eng, texts, cfg, seed) function of setups/<name>.py:
+        it builds the index through the program's public API and returns
+        the live documents' mask, or None where every drawn document is
+        live."""
+        return self._module("setups", name).build
+
+    def alive(self, name: str):
+        """The alive(cfg, n_docs, seed) function of setups/<name>.py: the
+        mask its build returns, drawn without an engine (the control)."""
+        return self._module("setups", name).alive

@@ -4,15 +4,17 @@
         --trace <0|1>
 
 In order: draw the cell's corpus and query pool from the seed (gen/);
-build the index with `SearchEngine.build` from the texts; warm up on the
+set the index up by the configuration's set-up (setups/<its "setup"
+name>.py; setups/single.py, one `SearchEngine.build` from the texts,
+where it names none), which returns the live documents; warm up on the
 cell's own traffic (`preplan` over the pool, then one pass of
 `search_stream`, which captures every plan layout's step graph and loads
 the kernel library); drive `search_stream` for `--seconds` over the
 pool's batches, round and round, by the mix's loop (loops/); then, with
 the engine freed, rank the sampled queries with the configuration's plain
-reference (reference/) and compare. The last line on stdout is the
-result, JSON; the last lines on stderr are the numbers compared, each
-beside its limit.
+reference (reference/) over the live documents and compare. The last
+line on stdout is the result, JSON; the last lines on stderr are the
+numbers compared, each beside its limit.
 
 With `--trace 0` the result's metrics are the cell's end-to-end metrics.
 With `--trace 1` the window runs under the program's profiler trace
@@ -21,7 +23,9 @@ not ended it first; the result carries the per-layer metrics, each read
 by its reader in metrics/, and the device's busy and window seconds.
 
 The program is driven only through its public API: `SearchEngine`,
-`.build`, `.preplan`, `.search_stream`, `.resident_bytes` and
+`.build`, `.build_streaming`, `.delete_docs`, the lifecycle policy's
+`.auto_compact_segments` and `.auto_compact_dead_frac`,
+`len(.segments)`, `.preplan`, `.search_stream`, `.resident_bytes` and
 `utils/prof.py`.
 """
 from __future__ import annotations
@@ -114,7 +118,8 @@ def passed(checks: dict) -> bool:
 
 def window_counts(pool, ref, corpus, pulls, k: int, peaks) -> float:
     """Least seconds (roofline.py) of the window's batches, from the
-    pool's term ids and the corpus's df as the reference counted them."""
+    pool's term ids and the df of the live documents as the reference
+    counted them: the postings that a compacted index would read."""
     from . import roofline
 
     cls = ref.cls_of_index[corpus.perm[pool.ranks]]
@@ -139,12 +144,14 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool,
     from . import trace as trace_mod
     from .gen.corpus import draw_corpus
     from .gen.queries import Pool
+    from .registry import setup_of
 
     cuda = torch.device(device).type == "cuda"
     wl = reg.workload(name)
     cfg = reg.config(wl["config"])
     traffic = reg.traffic(wl["traffic"])
     serve = reg.loop(traffic["loop"])
+    build = reg.setup(setup_of(cfg)["name"])
     Reference = reg.reference(cfg["scoring"]["kind"])
     k = int(traffic["k"])
 
@@ -161,7 +168,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool,
     t = time.time()
     eng = make_engine(cfg, device)
     texts, corpus.texts = corpus.texts, None
-    eng.build(texts)
+    alive = build(eng, texts, cfg, seed)
     del texts
     gc.collect()
     if cuda:
@@ -219,7 +226,8 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
     t = time.time()
-    ref = Reference(corpus, cfg["scoring"], cfg["max_query_terms"], device)
+    ref = Reference(corpus, cfg["scoring"], cfg["max_query_terms"], device,
+                    alive=alive)
     ref_ids, ref_scores = ref.topk([pool.text(q) for q in pool.sample], k)
     checks = compare(answers, pool.sample, ref_ids, ref_scores)
     log(f"reference: {len(pool.sample)} queries in "

@@ -1,6 +1,7 @@
 """Tiny cells for the CPU tests: a temporary benchmark tree whose
 configurations are the real ones with fewer documents and whose mixes
-are the real ones with small batches."""
+are the real ones with small batches, and a live index's set-up laid
+over one of them."""
 from __future__ import annotations
 
 import json
@@ -19,7 +20,7 @@ def tiny_tree(tmp: Path, docs=None, batch=48, pool_batches=4,
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for sub in ("configs", "traffic"):
         (tmp / sub).mkdir(parents=True, exist_ok=True)
-    for sub in ("metrics", "loops", "reference"):
+    for sub in ("metrics", "loops", "reference", "setups"):
         shutil.copytree(HERE / sub, tmp / sub, dirs_exist_ok=True,
                         ignore=shutil.ignore_patterns("__pycache__"))
     for c in spec["configs"]:
@@ -34,3 +35,21 @@ def tiny_tree(tmp: Path, docs=None, batch=48, pool_batches=4,
         (tmp / "traffic" / f"{w['traffic']}.json").write_text(json.dumps(t))
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec))
     return Registry(tmp / "BENCHMARK.json", base=tmp, root=tmp)
+
+
+def with_setup(reg: Registry, config: str, **setup) -> Registry:
+    """The tiny tree of `reg` with configuration `config` set up by
+    `setup` (its "name" and parameters)."""
+    tmp = reg.base
+    entry = reg._named(reg.spec["configs"], config, "config")
+    cfg = reg.config(config)
+    cfg["setup"] = setup
+    (tmp / entry["file"]).write_text(json.dumps(cfg))
+    return Registry(tmp / "BENCHMARK.json", base=tmp, root=tmp)
+
+
+def live(**over) -> dict:
+    """A segments set-up with the lifecycle policy off."""
+    return dict({"name": "segments", "segments": 3, "deleted_share": 0.1,
+                 "auto_compact_segments": None,
+                 "auto_compact_dead_frac": None}, **over)

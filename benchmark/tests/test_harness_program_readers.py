@@ -45,7 +45,8 @@ def test_every_new_metric_has_its_entry_and_reader():
         assert "workloads" not in entries[name]
         assert entries[name]["moves"] == "qps"
         assert callable(reg.reader(name))
-    assert [m["name"] for m in reg.spec["per_layer"]][-4:] == list(NEW)
+    # no name twice
+    assert len(entries) == len(reg.spec["per_layer"])
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -1,12 +1,14 @@
 """The trace reader and each per-layer metric's reader on a recorded
 fixture, and the roofline's counts."""
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 from benchmark import roofline, run, trace
 from benchmark.registry import Registry
+from document_search_engine_tpu_torch.utils import prof
 from harness_helpers import tiny_tree
 
 # A window of 1,000 us with two kernels, a copy and a set; the host runs
@@ -28,6 +30,31 @@ FIXTURE = {"traceEvents": [
      "dur": 200},
     {"ph": "i", "cat": "kernel", "name": "instant", "ts": 1500},
 ]}
+
+
+# the program's registry over the same window: three spans of one batch
+# each, and 300,000 (query, posting) pairs of which the tiled kernels
+# scored 240,000
+SPANS = {"stream.analyze": 2e-3, "stream.wait_analysis": 0.5e-3,
+         "collect.assemble": 1.5e-3}
+PAIRS, TILED_PAIRS = 300_000, 240_000
+
+
+@pytest.fixture
+def program(monkeypatch):
+    """The program's registry (utils/prof.py) filled with SPANS and the
+    pair counters, by a clock that ticks each span's length."""
+    prof.reset()
+    ticks = iter([t for dt in SPANS.values() for t in (1.0, 1.0 + dt)])
+    monkeypatch.setattr(prof, "time",
+                        SimpleNamespace(perf_counter=lambda: next(ticks)))
+    for span in SPANS:
+        with prof.phase(span):
+            pass
+    prof.count("step.pairs", PAIRS)
+    prof.count("step.tiled_pairs", TILED_PAIRS)
+    yield
+    prof.reset()
 
 
 def read_fixture(tmp_path):
@@ -52,20 +79,24 @@ def test_trace_read(tmp_path):
     assert gaps[trace.HOST_OUTSIDE_TORCH] == pytest.approx(450e-6)
 
 
-def test_readers_on_the_fixture(tmp_path):
+def test_readers_on_the_fixture(tmp_path, program):
     reg = Registry()
     tr = read_fixture(tmp_path)
     recorded = {"spans": {"dispatch.plan": 3.5, "dispatch.enqueue": 1.25},
                 "trace": tr, "batches": 4, "least_s": 30e-6}
     want = {"plan_ms": 3.5, "enqueue_ms": 1.25, "kernel_ms": 0.075,
-            "kernel_roofline": 10.0, "device_idle_pct": 60.0}
-    names = [m["name"] for m in reg.spec["per_layer"]]
-    assert sorted(names) == sorted(want)
-    for name in names:
-        assert reg.reader(name)(recorded) == pytest.approx(want[name])
+            "kernel_roofline": 10.0, "device_idle_pct": 60.0,
+            "analyze_ms": 2.0, "analyze_wait_ms": 0.5, "collect_ms": 1.5,
+            # 300,000 pairs over the fixture's 300 us of kernels
+            "kernel_gpairs_s": 1.0, "tiled_pair_share": 80.0}
+    entries = {m["name"] for m in reg.spec["per_layer"]}
+    for name, value in want.items():
+        assert name in entries, name
+        assert reg.reader(name)(recorded) == pytest.approx(value), name
 
 
 def test_readers_find_nothing(tmp_path):
+    prof.reset()
     reg = Registry()
     empty = {"spans": {"dispatch.plan": None, "dispatch.enqueue": None},
              "trace": None, "batches": 4, "least_s": None}
