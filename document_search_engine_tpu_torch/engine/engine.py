@@ -49,9 +49,12 @@ stream's worker thread),
 `dispatch.enqueue` (staging, copies, the graph's replay or capture, the
 copy-out), `collect.wait` (out.cpu(): the host blocked on the card and
 the D2H) and `collect.assemble` (the rest of _collect), and the counters
-`step.pairs` (the (query, posting) pairs of the batch's plan) and
+`step.pairs` (the (query, posting) pairs of the batch's plan),
 `step.tiled_pairs` (those of them in the buckets that the fused scorer
-serves by the tiled kernels, ops/tiled.py tiled_route). Inside
+serves by the tiled kernels, ops/tiled.py tiled_route) and
+`step.dead_pairs` (those of them whose document is tombstoned: postings
+stay in their rows until a compaction). Inside collect.assemble the
+cross-segment merge is the span `collect.merge_segments`. Inside
 `prof.trace` each span is also a record_function event of the trace.
 """
 from __future__ import annotations
@@ -441,6 +444,7 @@ class SearchEngine:
         self._emb_cache: dict = {}  # dim -> (emb, ssq), _device_embeddings
         self._dv_cache: dict = {}  # segment -> (doc, val, dv), _dv_planes
         self._quant_cache: dict = {}  # segment -> (doc, offs_h, offs_d)
+        self._dead_cache: dict = {}  # segment -> rows' dead postings | None
         self._last_step = None  # (step, host inputs) of the last batch
         if self._graphs is not None:
             self._graphs.clear()
@@ -771,6 +775,20 @@ class SearchEngine:
         self._quant_cache[si] = (dev_seg.post_doc, offs_h, offs_d)
         return offs_h, offs_d
 
+    def _dead_rows(self, si: int, host):
+        """Per term row of segment si its tombstoned docs' postings: the
+        row's length less its live df (delete_from_hosts keeps df exact
+        over the live docs); None where the segment has none. Cached per
+        segment until the next mutation."""
+        if si not in self._dead_cache:
+            dead = None
+            if not host.alive.all():
+                dead = np.diff(host.indptr) - host.df
+                if not dead.any():
+                    dead = None
+            self._dead_cache[si] = dead
+        return self._dead_cache[si]
+
     def _split_active(self, mode: str, k: int, families) -> bool:
         """Splitting serves only the fused scorer with one block family
         (ops/schedule.py split_pieces), for k the kernel serves."""
@@ -900,7 +918,7 @@ class SearchEngine:
             idx_map = []  # per segment: list of (plan-row indices, bq)
             piece_maps = []  # per segment: None | (qidx, pno, mmax, rows)
             r_subs, a_subs, c_subs = [], [], []
-            pairs = tiled_pairs = 0
+            pairs = tiled_pairs = dead_pairs = 0
             for si, host, rows, found, a_seg in self._segment_inputs(
                 slot_h, coeff, rows_g, found_g
             ):
@@ -911,6 +929,11 @@ class SearchEngine:
                     )
                 )
                 pairs += int(q_pairs.sum())
+                if self._graphs is not None:  # dispatch_span's rule
+                    dead = self._dead_rows(si, host)
+                    if dead is not None:
+                        dead_pairs += int(
+                            (dead[rows] * found).sum(dtype=np.int64))
                 n_rows_p = rows_p.shape[0]
                 if self.plan_cache is not None:
                     key = self._plan_key(si, host, s, k, mode, families)
@@ -979,6 +1002,7 @@ class SearchEngine:
             if self._graphs is not None:  # dispatch_span's rule
                 prof.count("step.pairs", pairs)
                 prof.count("step.tiled_pairs", tiled_pairs)
+                prof.count("step.dead_pairs", dead_pairs)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(
@@ -1025,7 +1049,8 @@ class SearchEngine:
         assemble (ids, scores): a split query's doc-disjoint pieces, and
         then the segments, merge by (score desc, gid asc) on the host.
         On the card the read is span collect.wait, the rest
-        collect.assemble."""
+        collect.assemble, and in it the segments' merge
+        collect.merge_segments."""
         out, idx_map, piece_maps, nq, k = fut
         with dispatch_span(self._graphs, "collect.wait"):
             host = out.cpu().numpy()
@@ -1056,10 +1081,11 @@ class SearchEngine:
             if len(all_vals) == 1:
                 v, g = all_vals[0], all_gids[0]
             else:
-                v, g = _merge_ranked(
-                    np.concatenate(all_vals, axis=1),
-                    np.concatenate(all_gids, axis=1), k,
-                )
+                with dispatch_span(self._graphs, "collect.merge_segments"):
+                    v, g = _merge_ranked(
+                        np.concatenate(all_vals, axis=1),
+                        np.concatenate(all_gids, axis=1), k,
+                    )
             return g[:nq].astype(np.int64), v[:nq].astype(np.int64)
 
 

@@ -34,10 +34,14 @@ serving path's spans, one of each a batch of a search_stream:
     dispatch.enqueue       main             staging, copies, the replay
     collect.wait           main             out.cpu(): the card, the D2H
     collect.assemble       main             the rest of _collect
+    collect.merge_segments main             in collect.assemble, the
+                                            merge of several segments'
+                                            top k (none at one segment)
 
 and the counters `step.pairs`, the (query, posting) pairs a batch's plan
-asks the kernels to score, and `step.tiled_pairs`, those of them in the
-buckets that the tiled kernels serve (ops/tiled.py tiled_route); both
+asks the kernels to score, `step.tiled_pairs`, those of them in the
+buckets that the tiled kernels serve (ops/tiled.py tiled_route), and
+`step.dead_pairs`, those of them whose document is tombstoned; all three
 counted under dispatch.plan.
 
 The registry is shared by threads (search_stream's analysis runs on a

@@ -5,8 +5,11 @@ search_stream lands in the Chrome trace as a user_annotation event, the
 analysis on its worker thread; no record_function is entered outside a
 trace; `step.pairs` equals the roofline's count of (query, posting)
 pairs from each query's distinct terms and their df, unsplit and split;
-the registry keeps every update while several threads write it; and
-chip_smoke.py's host timers still wrap the stream."""
+`step.dead_pairs` equals a count of the tombstoned documents' postings
+read from the resident planes, over device- and host-built segments;
+`collect.merge_segments` opens once a batch over several segments and
+never over one; the registry keeps every update while several threads
+write it; and chip_smoke.py's host timers still wrap the stream."""
 import json
 import sys
 import threading
@@ -234,4 +237,104 @@ def test_the_registry_keeps_every_update_across_threads():
     rec = json.loads(prof.metrics_json())
     assert rec["counts"]["threads.x"] == n_threads * n_iter
     assert rec["counters"]["threads.n"] == 3 * n_threads * n_iter
+    prof.reset()
+
+
+def _streamed_engine(docs, segments, device_build=True):
+    """`docs` streamed in as `segments` contiguous segments, the
+    lifecycle policy off, on an engine that keeps step graphs."""
+    eng = SearchEngine(device="cpu")
+    eng.device_build = device_build
+    eng.auto_compact_segments = eng.auto_compact_dead_frac = None
+    cuts = [i * len(docs) // segments for i in range(segments + 1)]
+    eng.build_streaming(docs[a:b] for a, b in zip(cuts, cuts[1:]))
+    assert len(eng.segments) == segments
+    eng._graphs = StepGraphs("cpu", capturer=fake_capture)
+    return eng
+
+
+def _row_docs(dev_seg, r):
+    """Local doc ids of term row r, read from the resident doc plane."""
+    flat = dev_seg.post_doc.reshape(-1).numpy()
+    indptr, row_start = dev_seg.indptr.numpy(), dev_seg.row_start.numpy()
+    return flat[row_start[r]: row_start[r] + indptr[r + 1] - indptr[r]]
+
+
+def _dead_pairs_brute(eng, queries) -> int:
+    """For each query's distinct terms and each segment that holds the
+    term, the postings of its row whose document is tombstoned."""
+    oracle = OracleEngine()
+    n = 0
+    for q in queries:
+        for h in set(oracle.hasher.hash_tokens(oracle.tokenizer(q))
+                     .tolist()):
+            for host, dev_seg in eng.segments:
+                r = int(np.searchsorted(host.term_hash, np.uint64(h)))
+                if r < len(host.term_hash) and host.term_hash[r] == h:
+                    n += int((~host.alive[_row_docs(dev_seg, r)]).sum())
+    return n
+
+
+@pytest.mark.parametrize("device_build", [True, False])
+@pytest.mark.parametrize("share", [0.0, 0.1, 0.4])
+@pytest.mark.parametrize("segments", [1, 3, 10])
+def test_step_dead_pairs_is_the_brute_force_count(segments, share,
+                                                  device_build):
+    """Deleted in two calls, counted after each (the per-segment cache
+    follows every mutation). The count rests on each row's length less
+    its live df being its dead postings, for both build paths."""
+    docs = synth_corpus(n_docs=300, vocab_size=150, mean_len=25, seed=93)
+    queries = synth_queries(docs, n_queries=10, terms_per_query=3, seed=94)
+    queries += ["", "zzznotaword"]
+    eng = _streamed_engine(docs, segments, device_build)
+    rng = np.random.default_rng(segments)
+    dead = rng.choice(len(docs), size=round(share * len(docs)),
+                      replace=False)
+    for part in (dead[: len(dead) // 2], dead[len(dead) // 2:]):
+        eng.delete_docs(part)
+        for host, dev_seg in eng.segments:
+            per_row = [int((~host.alive[_row_docs(dev_seg, r)]).sum())
+                       for r in range(len(host.term_hash))]
+            np.testing.assert_array_equal(
+                np.diff(host.indptr) - host.df, per_row)
+        prof.reset()
+        eng.search(queries, k=10)
+        want = _dead_pairs_brute(eng, queries)
+        assert prof.total("step.dead_pairs") == want
+        assert prof.total("step.pairs") >= want
+    assert (want > 0) == (share > 0)
+    prof.reset()
+
+
+@pytest.mark.parametrize("segments,split_rows", [
+    (1, None), (1, 2), (3, None), (3, 2)])
+def test_merge_segments_opens_once_a_batch_over_segments(
+        tmp_path, segments, split_rows):
+    """Over several segments the span opens once a batch, inside
+    collect.assemble on the main thread; over one it never opens, and
+    a split query's piece merge is not in it."""
+    docs, batches = _corpus()
+    eng = _streamed_engine(docs, segments)
+    eng.scorer, eng.split_rows = "fused", split_rows
+    want = list(eng.search_stream(batches, k=5))  # every graph captured
+    prof.reset()
+    path = tmp_path / "trace.json"
+    with prof.trace(str(path)):
+        got = list(eng.search_stream(batches, k=5))
+    for (g, v), (wg, wv) in zip(got, want):
+        np.testing.assert_array_equal(g, wg)
+        np.testing.assert_array_equal(v, wv)
+    counts = json.loads(prof.metrics_json())["counts"]
+    assert counts["collect.assemble"] == len(batches)
+    n = len(batches) if segments > 1 else 0
+    assert counts.get("collect.merge_segments", 0) == n
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    merges = [e for e in events if e["name"] == "collect.merge_segments"]
+    assembles = [e for e in events if e["name"] == "collect.assemble"]
+    assert len(merges) == n
+    for m in merges:
+        assert any(a["tid"] == m["tid"] and a["ts"] <= m["ts"]
+                   and m["ts"] + m["dur"] <= a["ts"] + a["dur"]
+                   for a in assembles)
     prof.reset()
