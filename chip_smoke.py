@@ -55,7 +55,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    100, 256, 1024}, each with 16-byte and 4-byte loads (dim 100: 4-byte
    only), K in {1, 10, 16, 64, 65, 200}, 301 queries (a multiple of no
    queries a block above 1), with dead (-1) and repeated gids, a query
-   with no live candidate and the table's last row. Results must be
+   with no live candidate and the table's last row. The segment merge
+   (ops/segment_merge.py, phase_segment_merge): random ranked lists at
+   the live index's batch (1,024 queries x 10 segments x k 100), at k
+   10 and at four more shapes, with lists shorter than k, queries in no
+   segment's buckets, junk rows between the lists and equal scores
+   across segments; timed at the first two. Results must be
    bit-identical.
 3. Parity on the card: SearchEngine(device="cuda") equals the frozen CPU
    oracle in ids and integer scores (bm25 and tfidf, k up to 200), in
@@ -269,7 +274,9 @@ stdout ends with the lifecycle path's JSON line, the sharded path's,
 the reference path's, the bench's ("bench: ..."), phase graphs'
 ("graphs: ..."), phase tools' ("tools: ..."), the kernels' JSON
 line (the rank-only kernel's launches: the xla_rank path's and phase
-9's packed step's), the card's name and power limit, and {"ok": true,
+9's packed step's; the segment merge's launches in the segment curve's
+timed passes and its time at the live index's batch),
+the card's name and power limit, and {"ok": true,
 "device": {...}} as the last line. Progress goes
 to stderr. chip_ab.py runs this script in several trees in turn, for a
 comparison on one card in one go.
@@ -308,6 +315,10 @@ KERNELS = {
         "document_search_engine_tpu_torch/csrc/fused_tiled.cu",
         "document_search_engine_tpu/ops/fused_pallas.py:288 (r_c >= "
         "TILED_MIN_RC)"),
+    # none of its own: the JAX package merges segments on the host
+    "segment_merge": (
+        "document_search_engine_tpu_torch/csrc/segment_merge.cu",
+        "none (document_search_engine_tpu/engine/engine.py's host merge)"),
 }
 # the card's peaks for bound_ms (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1323,6 +1334,84 @@ def phase_dots(device, diff: Diff, seed: int = 1) -> int:
         log(f"kernel == plain: dots dim={dim}, K in {DOTS_KS}, "
             f"{'16- and 4-byte' if dim % 16 == 0 else '4-byte'} loads")
     return n
+
+
+# the segment merge's cases: (queries, segments, k, score range, hit
+# share); the first is the live cell's batch (1,024 queries, 10 segments,
+# k 100), the second its shape at k 10
+SEGMENT_MERGE_CASES = ((1024, 10, 100, 5, 0.5), (1024, 10, 10, 5, 0.5),
+                       (1024, 10, 100, 1 << 30, 1.0), (1024, 3, 128, 3, 0.9),
+                       (333, 2, 1, 2, 0.5), (64, 17, 64, 4, 1.0))
+
+
+def segment_merge_inputs(rng, nq, n_seg, k, v_max, hit_share):
+    """Random ranked lists as the batch step stacks them: per (query,
+    segment) up to k hits ranked (score desc, gid asc), gids disjoint
+    across segments and scores in [1, v_max], (-1, -1) past the last; a
+    fifth of the lists absent (pos -1), their rows left as junk among the
+    others; query 0 in no segment, query 1 with full lists in every one.
+    Returns (stacked (rows, 2k), pos (nq, n_seg)) int32 numpy arrays."""
+    step = 1 << 10
+    span = k * step
+    g = (np.arange(n_seg)[None, :, None] * span
+         + np.arange(k)[None, None, :] * step
+         + rng.integers(0, step, (nq, n_seg, k)))
+    v = rng.integers(1, v_max + 1, (nq, n_seg, k))
+    flat_g, flat_v = g.reshape(-1, k), v.reshape(-1, k)
+    order = np.lexsort((flat_g, -flat_v), axis=-1)
+    v = np.take_along_axis(flat_v, order, 1).reshape(nq, n_seg, k)
+    g = np.take_along_axis(flat_g, order, 1).reshape(nq, n_seg, k)
+    hits = rng.binomial(k, hit_share, (nq, n_seg))
+    hits[1] = k
+    dead = np.arange(k)[None, None, :] >= hits[:, :, None]
+    v[dead], g[dead] = -1, -1
+    present = rng.random((nq, n_seg)) > 0.2
+    present[0], present[1] = False, True
+    n_rows = nq * n_seg + 5
+    rows = rng.permutation(n_rows)[: nq * n_seg].reshape(nq, n_seg)
+    stacked = rng.integers(-3, 1 << 20, (n_rows, 2 * k))
+    stacked[rows] = np.concatenate([v, g], 2)
+    pos = np.where(present, rows, -1)
+    return stacked.astype(np.int32), pos.astype(np.int32)
+
+
+def phase_segment_merge(device, diff: Diff, seed: int = 12):
+    """The cross-segment merge kernel (csrc/segment_merge.cu) vs its plain
+    mirror on SEGMENT_MERGE_CASES, then, at the live cell's shape and at
+    k 10, the kernel timed (a run of 100 launches, L2-warm), the mirror on
+    the card and the bytes bound (the present lists, pos and the answer,
+    each once, at 3.35 TB/s). Returns (cases checked, timings)."""
+    import torch
+
+    from document_search_engine_tpu_torch.ops.segment_merge import (
+        segment_merge,
+        segment_merge_plain,
+    )
+
+    rng = np.random.default_rng(seed)
+    n, timings = 0, {}
+    for nq, n_seg, k, v_max, hit_share in SEGMENT_MERGE_CASES:
+        stacked, pos = segment_merge_inputs(rng, nq, n_seg, k, v_max,
+                                            hit_share)
+        st, ps = (torch.from_numpy(a).to(device) for a in (stacked, pos))
+        got = segment_merge(st, ps, k)
+        want = segment_merge_plain(st, ps, k)
+        torch.cuda.synchronize()
+        what = f"segment merge nq={nq} S={n_seg} k={k} scores<={v_max}"
+        diff.check(got, want, what)
+        n += 1
+        if v_max == 5 and n_seg == 10:
+            ms, runs = loop_ms(lambda: segment_merge(st, ps, k), 100)
+            plain_ms, _ = loop_ms(lambda: segment_merge_plain(st, ps, k), 5)
+            nbytes = (int((pos >= 0).sum()) * 2 * k + pos.size
+                      + nq * 2 * k) * 4
+            timings[f"k{k}"] = {
+                "shape": [nq, n_seg, k], "ms": ms, "ms_runs": runs,
+                "plain_ms": plain_ms, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+    log(f"kernel == plain: segment merge, {n} cases; {json.dumps(timings)}")
+    return n, timings
 
 
 def plain_on(device, d2, v2, sr, rm, ab, nb, block, s, k, n_docs):
@@ -2396,11 +2485,15 @@ def path_launches(name):
 def reset_launches():
     from document_search_engine_tpu_torch.ops import fused as F
     from document_search_engine_tpu_torch.ops.rank import rank_kernel
+    from document_search_engine_tpu_torch.ops.segment_merge import (
+        segment_merge,
+    )
 
     for attr in ("launches", "launches_large_k", "launches_dlim",
                  "launches_dv", "launches_tiled"):
         setattr(F.fused_search, attr, 0)
     rank_kernel.launches = 0
+    segment_merge.launches = 0
 
 
 def phase_paths(eng, batches, base_outs, diffs):
@@ -3920,7 +4013,9 @@ def phase_tools(device):
     kernel launched. The segment curve at its defaults (96,000 docs as
     1, 2, 4, 8 and 16 segments, 8,192 queries a batch): every count must
     return the 1-segment results (the tool raises otherwise), launch
-    kernels through at least one step graph, and the 1-segment results
+    kernels through at least one step graph, launch the segment merge
+    once a batch of its timed pass over several segments and never over
+    one (the kernels line's count), and the 1-segment results
     of a seeded SEG_ORACLE_SAMPLE of the queries must equal the
     vectorized oracle's (the dict oracle takes minutes on such queries;
     the two are held equal in tests/test_torch_vector_oracle.py). The
@@ -3967,6 +4062,12 @@ def phase_tools(device):
             if r["launches_per_batch"] <= 0 or r["graphs"] < 1]
     if idle:
         raise AssertionError(f"segments: no kernel launch or graph at {idle}")
+    merged = {n: r["batches"] if n > 1 else 0
+              for n, r in seg["per_count"].items()}
+    got = {n: r["merge_launches"] for n, r in seg["per_count"].items()}
+    if got != merged or not sum(merged.values()):
+        raise AssertionError(
+            f"segments: segment merge launches {got}, batches merged {merged}")
     nq = len(seg["queries"])
     pick = np.sort(np.random.default_rng(14).choice(
         nq, size=min(SEG_ORACLE_SAMPLE, nq), replace=False))
@@ -3983,10 +4084,12 @@ def phase_tools(device):
         "relative": {n: q / seg["curve"][1] for n, q in seg["curve"].items()},
         "per_count": seg["per_count"], "seconds": seg_s,
         "oracle_sample": len(pick), "oracle_s": oracle_s,
+        "merge_launches": sum(got.values()),
     }
-    log(f"tools: segments curve {seg['curve']} in {seg_s:.1f}s; 1-segment "
-        f"results equal the oracle on {len(pick)} queries "
-        f"({oracle_s:.1f}s)")
+    log(f"tools: segments curve {seg['curve']} in {seg_s:.1f}s; "
+        f"{sum(got.values())} segment merge launches in as many merged "
+        f"batches; 1-segment results equal the oracle on {len(pick)} "
+        f"queries ({oracle_s:.1f}s)")
     del seg, orc
 
     reset_launches()
@@ -4224,6 +4327,8 @@ def main() -> int:
     log(f"phase 2: {n} rank kernel-vs-plain cases bit-identical")
     n = phase_dots(device, diffs["rerank_dots"])
     log(f"phase 2: {n} dots kernel-vs-plain cases bit-identical")
+    n, merge_ms = phase_segment_merge(device, diffs["segment_merge"])
+    log(f"phase 2: {n} segment merge kernel-vs-plain cases bit-identical")
     n = phase_oracle(device)
     log(f"phase 3: {n} oracle and rerank comparisons bit-identical")
     res, eng, batches, outs, texts = phase_main(device, diffs)
@@ -4278,6 +4383,13 @@ def main() -> int:
             ref["launches"] if name == "rank_only" else 0)
         kernels.append(batch_entry(name, launches, diffs,
                                    pp[name]["batch"]))
+    # the merge's launches: the segment curve's timed passes over several
+    # segments (phase tools), its time at the live index's batch
+    live = merge_ms["k100"]
+    kernels.append(kernel_entry(
+        "segment_merge", tl["segments"]["merge_launches"],
+        diffs["segment_merge"], live["ms"], live["plain_ms"],
+        live["bound_ms"], live["bound_by"], None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -132,6 +132,7 @@ def launch_counts() -> dict:
     only), by the kernel's name."""
     from .ops.fused import fused_search
     from .ops.rank import rank_kernel
+    from .ops.segment_merge import segment_merge
 
     return {
         "fused_search": fused_search.launches,
@@ -140,6 +141,7 @@ def launch_counts() -> dict:
         "fused_search_dv": fused_search.launches_dv,
         "fused_tiled": fused_search.launches_tiled,
         "rank_only": rank_kernel.launches,
+        "segment_merge": segment_merge.launches,
     }
 
 

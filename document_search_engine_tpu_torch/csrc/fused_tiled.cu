@@ -202,19 +202,6 @@ __device__ __forceinline__ int first_at_or_above(const int* __restrict__ docs,
   return lo;
 }
 
-// Cuts the unique composites buf[0, m), m > k, to their top k in
-// buf[0, k) and returns the k-th. Called by every thread; ends with a
-// barrier.
-template <int THREADS>
-__device__ u64 keep_top(u64* buf, int m, int k) {
-  __shared__ u64 sel[kMaxLargeK];
-  const u64 kth = radix_kth<THREADS>(buf, m, k);
-  gather_top<THREADS>(buf, m, kth, sel);  // exactly k
-  for (int i = threadIdx.x; i < k; i += THREADS) buf[i] = sel[i];
-  __syncthreads();
-  return kth;
-}
-
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
     tiled_score_kernel(const int* __restrict__ post_doc,

@@ -447,4 +447,17 @@ __device__ void block_topk_large(const u64* a, int n, u64* comp, int s, int k,
   emit_ranked<THREADS>(comp, m, k, kth, vals_out, docs_out);
 }
 
+// Cuts the unique composites buf[0, m), m > k, to their top k in
+// buf[0, k) and returns the k-th. Called by every thread; ends with a
+// barrier.
+template <int THREADS>
+__device__ u64 keep_top(u64* buf, int m, int k) {
+  __shared__ u64 sel[kMaxLargeK];
+  const u64 kth = radix_kth<THREADS>(buf, m, k);
+  gather_top<THREADS>(buf, m, kth, sel);  // exactly k
+  for (int i = threadIdx.x; i < k; i += THREADS) buf[i] = sel[i];
+  __syncthreads();
+  return kth;
+}
+
 }  // namespace dse

@@ -6,10 +6,14 @@ policy, the stats and value refresh, save/load (index/checkpoint.py),
 search, search_stream, preplan and warmup, with the batch step
 (`_batch_step`) running every (segment x bucket) sub-call of a batch and
 producing one stacked int32 output, so a batch costs one device->host
-read. On the card the step is the JAX package's jitted program's
-counterpart: one CUDA graph per plan-layout key (engine/step_graph.py),
-captured on a key's first batch and replayed for every later one, its
-inputs copied from pinned memory without waiting on the card.
+read. Over several segments the step also merges each query's ranked
+lists across them (ops/segment_merge.py) where the batch has no
+doc-range pieces and k <= 128 (`_device_merges`), so that the read is the
+answer; elsewhere `_collect` merges them on the host. On the card the
+step is the JAX package's jitted program's counterpart: one CUDA graph
+per plan-layout key (engine/step_graph.py), captured on a key's first
+batch and replayed for every later one, its inputs copied from pinned
+memory without waiting on the card.
 
 Also the hybrid rerank path: `search_rerank` and its device-resident
 embedding table (`_device_embeddings`, ops/rerank.py).
@@ -53,9 +57,12 @@ the D2H) and `collect.assemble` (the rest of _collect), and the counters
 `step.tiled_pairs` (those of them in the buckets that the fused scorer
 serves by the tiled kernels, ops/tiled.py tiled_route) and
 `step.dead_pairs` (those of them whose document is tombstoned: postings
-stay in their rows until a compaction). Inside collect.assemble the
-cross-segment merge is the span `collect.merge_segments`. Inside
-`prof.trace` each span is also a record_function event of the trace.
+stay in their rows until a compaction), `step.segment_merge_queries` (the
+batch's queries when it runs over several segments, else 0) and
+`step.device_merge_queries` (the same where the step merges them on the
+device, else 0). Inside collect.assemble the host's cross-segment merge
+is the span `collect.merge_segments`. Inside `prof.trace` each span is
+also a record_function event of the trace.
 """
 from __future__ import annotations
 
@@ -108,10 +115,11 @@ def _batch_step(
     scale: float,
     clip: float,
     mode: str,  # "fused" | "fused_dv" | "xla" | "xla_rank"
-    n_real: int,  # readback-trim gather size
+    n_real: int,  # readback rows: the gather's size, or nq when merged
     dv_planes=None,  # per segment (X+8, 256) dv plane ("fused_dv")
     offs_devs=None,  # per segment (T, P+1) i32 doc-quantile tables
     split_p: int = 0,  # quantile columns P (0 = splitting off)
+    merge: bool = False,  # merge the segments' lists (_device_merges)
 ):
     """The device work of one batch: per (segment x bucket) the plan
     tables expand on the device from the shipped (bq, S) rows and
@@ -119,8 +127,11 @@ def _batch_step(
     where(v > 0, dloc + doc_base, -1) applies. Returns ONE (n_real, 2k)
     int32 tensor — per-bucket [vals | gids] stacked in plan order, with
     the pow-2 bq padding rows dropped by a gather whose indices ride in
-    rows_cat's tail (the same host->device copy). It reads no tensor's
-    value on the host, so it captures into a CUDA graph whole.
+    rows_cat's tail (the same host->device copy). With merge, the tail
+    holds instead the (n_real = nq, S) table of each query's stacked row
+    in each segment (-1: none), and the output is each query's answer,
+    merged across the segments by ops/segment_merge.py. It reads no
+    tensor's value on the host, so it captures into a CUDA graph whole.
 
     With split_p, plan rows are doc-range pieces: their record ranges
     come from the resident quantile tables and the kernel limits each
@@ -129,6 +140,7 @@ def _batch_step(
     from ..ops.fused_dv import fused_search_dv
     from ..ops.packed import pack_tables, search_packed_tables
     from ..ops.rank import rank_candidates_kernel
+    from ..ops.segment_merge import segment_merge
 
     out_v, out_g = [], []
     off = 0
@@ -186,10 +198,13 @@ def _batch_step(
             out_v.append(v)
             out_g.append(g)
     stacked = torch.cat([torch.cat(out_v, 0), torch.cat(out_g, 0)], 1)
-    s_cols = rows_cat.shape[1]
-    n_extra = -(-n_real // s_cols)
-    idx_flat = rows_cat[off : off + n_extra].reshape(-1)[:n_real]
-    return stacked.index_select(0, idx_flat.long())
+    width = len(segments) if merge else 1
+    n_tail = n_real * width
+    n_extra = -(-n_tail // rows_cat.shape[1])
+    tail = rows_cat[off : off + n_extra].reshape(-1)[:n_tail]
+    if merge:
+        return segment_merge(stacked, tail.reshape(n_real, width), k)
+    return stacked.index_select(0, tail.long())
 
 
 def pipelined_stream(query_batches, depth, analyze_job, dispatch_job, span):
@@ -975,26 +990,38 @@ class SearchEngine:
                     else (qidx, pno, int(pno.max()) + 1 if len(pno) else 1,
                           n_rows_p)
                 )
-            # readback trim: the real (non-pad) output rows are gathered
-            # on the device before the single device->host read; the
-            # gather index rides in rows_cat's tail
+            # the read-back: the real (non-pad) output rows are gathered
+            # on the device before the single device->host read, or, where
+            # the step merges the segments, each query's stacked row in
+            # each segment (-1: none) leads it to its lists; either table
+            # rides in rows_cat's tail
+            merge = _device_merges(len(plan), split, k)
+            pos = np.full((nq, len(plan)), -1, np.int32) if merge else None
             offs = []
             off = 0
-            for idxs in idx_map:
+            for si, idxs in enumerate(idx_map):
                 for idx, bq in idxs:
-                    offs.append(off + np.arange(len(idx), dtype=np.int32))
+                    at = off + np.arange(len(idx), dtype=np.int32)
+                    if merge:
+                        pos[idx, si] = at
+                    else:
+                        offs.append(at)
                     off += bq
-            idx_flat = np.concatenate(offs)
-            n_real = len(idx_flat)
+            if merge:
+                flat, n_real = pos.reshape(-1), nq
+            else:
+                flat = np.concatenate(offs)
+                n_real = len(flat)
             if split:
                 # piece counts vary with traffic; round the gather size
                 # up so the step's keys stay few (the JAX package's rule:
                 # the pad gathers row 0, rows past the consumed range
                 # that _collect never reads)
                 n_real = -(-n_real // 256) * 256
-            n_extra = -(-n_real // s)
-            tail = np.zeros((n_extra, s), np.int32)
-            tail.reshape(-1)[: len(idx_flat)] = idx_flat
+            # the words _batch_step reads: n_real x S with merge, else n_real
+            n_tail = len(flat) if merge else n_real
+            tail = np.zeros((-(-n_tail // s), s), np.int32)
+            tail.reshape(-1)[: len(flat)] = flat
             r_all = np.concatenate(r_subs + [tail], axis=0)
             inputs = (r_all, np.concatenate(a_subs, axis=0).view(np.int32))
             if split:
@@ -1003,6 +1030,9 @@ class SearchEngine:
                 prof.count("step.pairs", pairs)
                 prof.count("step.tiled_pairs", tiled_pairs)
                 prof.count("step.dead_pairs", dead_pairs)
+                prof.count("step.segment_merge_queries",
+                           nq if len(plan) > 1 else 0)
+                prof.count("step.device_merge_queries", nq if merge else 0)
         sc = self.config.scoring
         scale = float(F32(2.0**sc.scale_bits))
         clip = float(
@@ -1021,7 +1051,7 @@ class SearchEngine:
             step = partial(
                 _batch_step, segs, plan=plan, k=k, scale=scale, clip=clip,
                 mode=mode, n_real=n_real, dv_planes=dv, offs_devs=quant,
-                split_p=split_p,
+                split_p=split_p, merge=merge,
             )
             resident = resident_key(
                 [t for _n, _b, d in segs
@@ -1030,10 +1060,11 @@ class SearchEngine:
                 [b for _n, b, _d in segs],
             )
             key = step_key(plan, k, scale, clip, mode, n_real, split_p,
-                           inputs, resident)
+                           inputs, resident, merge=merge)
             self._last_step = (step, inputs)
             out = run_step(self._graphs, tuple(slots), key, step, inputs)
-        return out, idx_map, piece_maps, nq, k
+        # idx_map None: the step's output is already the answer
+        return out, None if merge else idx_map, piece_maps, nq, k
 
     def _step_replayer(self):
         """A zero-argument callable running the last batch's device step
@@ -1046,15 +1077,19 @@ class SearchEngine:
 
     def _collect(self, fut):
         """Force the device->host read of a dispatched batch and
-        assemble (ids, scores): a split query's doc-disjoint pieces, and
-        then the segments, merge by (score desc, gid asc) on the host.
-        On the card the read is span collect.wait, the rest
-        collect.assemble, and in it the segments' merge
-        collect.merge_segments."""
+        assemble (ids, scores). Where the step merged the segments
+        (_device_merges) the read is the answer; otherwise a split
+        query's doc-disjoint pieces, and then the segments, merge by
+        (score desc, gid asc) on the host. On the card the read is span
+        collect.wait, the rest collect.assemble, and in it the host's
+        merge of several segments collect.merge_segments."""
         out, idx_map, piece_maps, nq, k = fut
         with dispatch_span(self._graphs, "collect.wait"):
             host = out.cpu().numpy()
         with dispatch_span(self._graphs, "collect.assemble"):
+            if idx_map is None:
+                return (host[:, k:].astype(np.int64),
+                        host[:, :k].astype(np.int64))
             all_vals, all_gids = [], []
             off = 0  # rows are the gathered REAL rows, bq pad dropped
             for idxs, pm in zip(idx_map, piece_maps):
@@ -1087,6 +1122,14 @@ class SearchEngine:
                         np.concatenate(all_gids, axis=1), k,
                     )
             return g[:nq].astype(np.int64), v[:nq].astype(np.int64)
+
+
+def _device_merges(n_segments: int, split: bool, k: int) -> bool:
+    """Whether a batch's step merges its segments' ranked lists on the
+    device (ops/segment_merge.py), by what the batch shows: more than one
+    segment, no doc-range pieces, and k the merge kernel serves. Else
+    _collect merges on the host (_merge_ranked)."""
+    return n_segments > 1 and not split and k <= MAX_K
 
 
 def _merge_ranked(vc: np.ndarray, gc: np.ndarray, k: int):

@@ -11,7 +11,9 @@ that maps a key to one captured `torch.cuda.CUDAGraph`, its static input
 buffers and its static output, and replays it for every batch whose key
 it has seen.
 
-- The key (`StepKey`, `step_key`): JAX's static arguments, the shapes
+- The key (`StepKey`, `step_key`): JAX's static arguments, whether the
+  step merges the segments' lists on the device (engine.py
+  _device_merges; the JAX package merges on the host), the shapes
   and types of the batch's inputs (the stacked rows, the coefficient
   bits and, when splitting, the pieces' quantile columns), and the
   addresses and shapes of the resident tensors the step reads (planes,
@@ -84,15 +86,16 @@ class StepKey(NamedTuple):
     split_p: int
     inputs: tuple  # ((shape, dtype), ...) of the batch's inputs
     resident: tuple  # ((address, shape), ...) and ints the step reads
+    merge: bool = False  # the step merges the segments' lists
 
 
 def step_key(plan, k, scale, clip, mode, n_real, split_p, inputs,
-             resident=()) -> StepKey:
+             resident=(), merge=False) -> StepKey:
     """The graph key of one batch (module docstring); `inputs` are its
     host arrays, `resident` from resident_key."""
     return StepKey(plan, k, scale, clip, mode, n_real, split_p,
                    tuple((a.shape, a.dtype.str) for a in inputs),
-                   tuple(resident))
+                   tuple(resident), merge)
 
 
 def resident_key(tensors, ints=()) -> tuple:
@@ -121,10 +124,12 @@ def dispatch_span(graphs, name):
 def _counters():
     from ..ops.fused import fused_search
     from ..ops.rank import rank_kernel
+    from ..ops.segment_merge import segment_merge
 
     return ((fused_search, "launches"), (fused_search, "launches_large_k"),
             (fused_search, "launches_dlim"), (fused_search, "launches_dv"),
-            (rank_kernel, "launches"), (fused_search, "launches_tiled"))
+            (rank_kernel, "launches"), (fused_search, "launches_tiled"),
+            (segment_merge, "launches"))
 
 
 def launch_counts() -> tuple:

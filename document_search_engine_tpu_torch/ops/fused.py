@@ -15,8 +15,9 @@ buckets (ops/tiled.py tiled_route: r_c >= TILED_MIN_RC, no doc limits,
 a tile block that fits) go to the tiled kernels of ops/tiled.py
 instead, from the same plan tables.
 
-The kernel library (every csrc/*.cu, the rank-only kernel of ops/rank.py
-and the rerank dots of ops/rerank.py included) is compiled by nvcc at
+The kernel library (every csrc/*.cu, the rank-only kernel of ops/rank.py,
+the rerank dots of ops/rerank.py and the segment merge of
+ops/segment_merge.py included) is compiled by nvcc at
 first use into `_build/` next to this package, keyed by a hash of the
 sources and flags, and loaded with ctypes (a plain C interface: no
 PyTorch headers, a few seconds of build). `fused_search` launches it for
@@ -421,10 +422,15 @@ def _lib():
             i, i, i,  # vec, lanes, queries a block (rerank.dots_launch)
             p, p, p,  # dots, cand_ssq, stream
         ]
+        lib.dse_segment_merge.argtypes = [
+            p, p,  # stacked step output, positions
+            i, i, i,  # nq, segments, k
+            p, p,  # out, stream
+        ]
         for fn in (lib.dse_fused_search, lib.dse_fused_search_dv,
                    lib.dse_fused_blocks_per_sm, lib.dse_tiled_search,
                    lib.dse_tiled_blocks_per_sm, lib.dse_rank,
-                   lib.dse_rerank_dots):
+                   lib.dse_rerank_dots, lib.dse_segment_merge):
             fn.restype = i
         lib.dse_error_string.argtypes = [i]
         lib.dse_error_string.restype = ctypes.c_char_p

@@ -10,11 +10,14 @@ Every count must return the 1-segment results (the global df refresh
 makes fragmentation invisible); a count that does not raises.
 
 Each (segment x bucket) pair adds a kernel launch to the batch's step
-graph and the host merges the segments' top-k in `_collect`, so the
-curve measures what the lifecycle policy's `auto_compact_segments`
-(engine/engine.py) trades. Beside the q/s each count prints the step
-graphs held (`len(eng._graphs)`; none on the CPU), the kernel launches a
-batch, the host ms a batch of `dispatch.plan` and `dispatch.enqueue`
+graph, and over several segments the step merges their top-k
+(ops/segment_merge.py, one more launch), so the curve measures what the
+lifecycle policy's `auto_compact_segments` (engine/engine.py) trades.
+Beside the q/s each count prints the step graphs held
+(`len(eng._graphs)`; none on the CPU), the kernel launches a batch (and
+the merge's launches in the timed pass: one a batch over several
+segments on the card), the host ms a batch of `dispatch.plan` and
+`dispatch.enqueue`
 (utils/prof.py), the peak device bytes above the count's start, the
 allocator's peak reserved bytes and the graph pool's bytes (the spans
 and the bytes on the card only).
@@ -96,7 +99,7 @@ def run(device, n_docs, vocab, nq, iters, counts, kind) -> dict:
         best, reading = 0.0, None
         for _p in range(2):
             prof.reset()
-            before = sum(launch_counts().values())
+            before = launch_counts()
             t0 = time.perf_counter()
             n_out = 0
             for ids, _s in eng.search_stream(
@@ -108,9 +111,13 @@ def run(device, n_docs, vocab, nq, iters, counts, kind) -> dict:
                 raise AssertionError(f"{n_out} results, not {nq * iters}")
             if nq * iters / dt > best:
                 best = nq * iters / dt
+                after = launch_counts()
                 reading = {
                     "launches_per_batch":
-                        (sum(launch_counts().values()) - before) / iters,
+                        (sum(after.values()) - sum(before.values())) / iters,
+                    "batches": iters,
+                    "merge_launches":
+                        after["segment_merge"] - before["segment_merge"],
                     # recorded on the card only (None on the CPU)
                     "plan_ms": prof.mean_ms("dispatch.plan"),
                     "enqueue_ms": prof.mean_ms("dispatch.enqueue"),
@@ -128,7 +135,8 @@ def run(device, n_docs, vocab, nq, iters, counts, kind) -> dict:
             f"segments={n_seg:>2}: {best:,.0f} q/s "
             f"(build {t_build:.1f}s, capture+warmup {t_warm:.1f}s, "
             f"graphs {r['graphs']}, launches a batch "
-            f"{r['launches_per_batch']:g}, dispatch.plan "
+            f"{r['launches_per_batch']:g} (merge {r['merge_launches']} in "
+            f"{r['batches']} batches), dispatch.plan "
             f"{_ms(r['plan_ms'])}, dispatch.enqueue {_ms(r['enqueue_ms'])} "
             f"a batch, peak device memory {r['peak_bytes']} B above the "
             f"start (reserved {r['reserved_bytes']} B, graph pool "

@@ -35,14 +35,19 @@ serving path's spans, one of each a batch of a search_stream:
     collect.wait           main             out.cpu(): the card, the D2H
     collect.assemble       main             the rest of _collect
     collect.merge_segments main             in collect.assemble, the
-                                            merge of several segments'
-                                            top k (none at one segment)
+                                            host's merge of several
+                                            segments' top k (none at one
+                                            segment, none where the step
+                                            merged them on the device)
 
 and the counters `step.pairs`, the (query, posting) pairs a batch's plan
 asks the kernels to score, `step.tiled_pairs`, those of them in the
-buckets that the tiled kernels serve (ops/tiled.py tiled_route), and
-`step.dead_pairs`, those of them whose document is tombstoned; all three
-counted under dispatch.plan.
+buckets that the tiled kernels serve (ops/tiled.py tiled_route),
+`step.dead_pairs`, those of them whose document is tombstoned,
+`step.segment_merge_queries`, the batch's queries where it runs over
+several segments (else 0), and `step.device_merge_queries`, the same
+where the step merges the segments on the device (else 0); all counted
+under dispatch.plan.
 
 The registry is shared by threads (search_stream's analysis runs on a
 worker while the main thread dispatches), so every update and read of

@@ -93,7 +93,7 @@ def test_one_capture_per_key_then_a_replay_for_every_batch():
 
 
 @pytest.mark.parametrize("field", ["plan", "k", "mode", "n_real", "split_p",
-                                   "shape"])
+                                   "merge", "shape"])
 def test_a_new_key_when_a_static_argument_or_shape_differs(field):
     g = _graphs()
     ins = _inputs(0)
@@ -101,7 +101,8 @@ def test_a_new_key_when_a_static_argument_or_shape_differs(field):
     g.run("slot", _key(ins), _toy_step, ins)
     changed = {"plan": dict(plan=((100, 4, ((16, 512, 16, 32),)),)),
                "k": dict(k=64), "mode": dict(mode="xla_rank"),
-               "n_real": dict(n_real=7), "split_p": dict(split_p=16)}
+               "n_real": dict(n_real=7), "split_p": dict(split_p=16),
+               "merge": dict(merge=True)}
     if field == "shape":
         ins2, key2 = _inputs(1, n=7), _key(_inputs(1, n=7))
     else:

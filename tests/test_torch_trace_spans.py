@@ -7,8 +7,11 @@ trace; `step.pairs` equals the roofline's count of (query, posting)
 pairs from each query's distinct terms and their df, unsplit and split;
 `step.dead_pairs` equals a count of the tombstoned documents' postings
 read from the resident planes, over device- and host-built segments;
-`collect.merge_segments` opens once a batch over several segments and
-never over one; the registry keeps every update while several threads
+over several segments the step merges them on the device and counts the
+batch's queries in `step.device_merge_queries` and
+`step.segment_merge_queries`, while `collect.merge_segments` opens once a
+batch only where the host merges (the split path), never over one
+segment; the registry keeps every update while several threads
 write it; and chip_smoke.py's host timers still wrap the stream."""
 import json
 import sys
@@ -310,9 +313,12 @@ def test_step_dead_pairs_is_the_brute_force_count(segments, share,
     (1, None), (1, 2), (3, None), (3, 2)])
 def test_merge_segments_opens_once_a_batch_over_segments(
         tmp_path, segments, split_rows):
-    """Over several segments the span opens once a batch, inside
-    collect.assemble on the main thread; over one it never opens, and
-    a split query's piece merge is not in it."""
+    """Over several segments without split the step merges them on the
+    device: the span never opens and both counters count every query.
+    Split, the host merges and the span opens once a batch, inside
+    collect.assemble on the main thread, with no query merged on the
+    device. Over one segment neither the span nor any count; a split
+    query's piece merge is never in the span."""
     docs, batches = _corpus()
     eng = _streamed_engine(docs, segments)
     eng.scorer, eng.split_rows = "fused", split_rows
@@ -326,8 +332,14 @@ def test_merge_segments_opens_once_a_batch_over_segments(
         np.testing.assert_array_equal(v, wv)
     counts = json.loads(prof.metrics_json())["counts"]
     assert counts["collect.assemble"] == len(batches)
-    n = len(batches) if segments > 1 else 0
+    host_merge = segments > 1 and split_rows is not None
+    n = len(batches) if host_merge else 0
     assert counts.get("collect.merge_segments", 0) == n
+    queries = sum(len(b) for b in batches)
+    assert prof.total("step.segment_merge_queries") == (
+        queries if segments > 1 else 0)
+    assert prof.total("step.device_merge_queries") == (
+        queries if segments > 1 and not host_merge else 0)
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     merges = [e for e in events if e["name"] == "collect.merge_segments"]
