@@ -1796,11 +1796,8 @@ def capture_batch(eng, batch, k):
 
 def dispatch(eng, batch, k):
     """eng._dispatch of one raw-text batch (either engine)."""
-    if hasattr(eng, "segments"):
-        slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
-            batch, eng.stats)
-        return eng._dispatch(slot_h, coeff, k, rows_g, found_g)
-    return eng._dispatch(batch, k)
+    stats = eng.stats if hasattr(eng, "segments") else eng.index.stats
+    return eng._dispatch(eng.frontend.analyze_rows(batch, stats), k)
 
 
 def run_statistics(d_key, ci, granule, n_docs, chunk_elems=16 << 20):
@@ -2390,11 +2387,10 @@ def phase_rerank(eng, batches, diffs, sample=1024, seed=1):
                               "dots_and_d2h", "order")}
     for b in batches:
         t0 = time.perf_counter()
-        slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
-            b, eng.stats)
+        analysis = eng.frontend.analyze_rows(b, eng.stats)
+        slot_h, coeff = analysis[0], analysis[1]
         t1 = time.perf_counter()
-        gids, lex = eng._collect(
-            eng._dispatch(slot_h, coeff, kk, rows_g, found_g))
+        gids, lex = eng._collect(eng._dispatch(analysis, kk))
         t2 = time.perf_counter()
         qemb_h, ssq_q = R.query_embeddings_int(slot_h, coeff, dim)
         t3 = time.perf_counter()

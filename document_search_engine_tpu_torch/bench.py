@@ -500,8 +500,9 @@ def run_wo_analysis(eng, pre, iters, k, depth, nq):
     inflight = deque()
     first = None
     for i in range(iters):
+        # no global rows: _dispatch looks them up per segment
         slot_h, coeff = pre[i % len(pre)]
-        inflight.append(eng._dispatch(slot_h, coeff, k))
+        inflight.append(eng._dispatch((slot_h, coeff, None, None), k))
         if len(inflight) >= depth:
             out = eng._collect(inflight.popleft())
             first = out if first is None else first
@@ -522,7 +523,7 @@ def capture_step(eng, pre0, k):
     Returns (step, args, kw, meta): step(*args, **kw) runs the batch's
     device work again into a fresh output, and eng._collect((out,
     *meta)) assembles its (ids, scores)."""
-    fut = eng._dispatch(*pre0, k)
+    fut = eng._dispatch((*pre0, None, None), k)
     eng._collect(fut)
     return eng._step_replayer(), (), {}, fut[1:]
 

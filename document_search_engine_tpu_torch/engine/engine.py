@@ -1,4 +1,5 @@
-"""SearchEngine over torch device segments: build -> search_stream.
+"""SearchEngine over torch device segments: build -> search_stream, and
+the serving path both engines share.
 
 Port of `document_search_engine_tpu/engine/engine.py`: build,
 add_docs, the streaming build, delete_docs, compact and the auto-compact
@@ -14,6 +15,16 @@ step is the JAX package's jitted program's counterpart: one CUDA graph
 per plan-layout key (engine/step_graph.py), captured on a key's first
 batch and replayed for every later one, its inputs copied from pinned
 memory without waiting on the card.
+
+The serving path is written once, here, for SearchEngine and
+parallel/dist.py's DistributedSearchEngine: `ServingEngine` holds the
+scorer mode, the request check, search, search_stream with its
+re-analysis rule, search_rerank, warmup and preplan's loop;
+`fill_buckets` the host bucket fill, `merge_pieces` and `_merge_ranked`
+the host merge, and `route_bucket` the per-bucket device route (plan
+expansion, doc limits, the scorer by (mode, k), the gid mask) that both
+batch steps call. Each engine keeps its planning, `_dispatch` and
+`_collect`.
 
 Also the hybrid rerank path: `search_rerank` and its device-resident
 embedding table (`_device_embeddings`, ops/rerank.py).
@@ -41,31 +52,12 @@ the global stats and drops every per-segment device cache (row tables,
 embeddings, dv planes, doc-quantile tables) and every step graph, so no
 cache keeps a replaced plane resident.
 
-Phase timers (utils/prof.py), where the reference records them:
-`build.analyze` around add_docs' text analysis, `search.analyze` and
-`search.score` around search's analysis and its dispatch and collect.
-On the card (where the engine keeps step graphs, step_graph.py
-dispatch_span) the serving path also records, each batch of a
-search_stream: `stream.analyze` (the frontend's analysis, on the
-stream's worker thread),
-`stream.wait_analysis` (the main thread's wait for it), `dispatch.plan`
-(slot slicing, row lookup, planning, layout cells, array fill),
-`dispatch.enqueue` (staging, copies, the graph's replay or capture, the
-copy-out), `collect.wait` (out.cpu(): the host blocked on the card and
-the D2H) and `collect.assemble` (the rest of _collect), and the counters
-`step.pairs` (the (query, posting) pairs of the batch's plan),
-`step.tiled_pairs` (those of them in the buckets that the fused scorer
-serves by the tiled kernels, ops/tiled.py tiled_route) and
-`step.dead_pairs` (those of them whose document is tombstoned: postings
-stay in their rows until a compaction), `step.segment_merge_queries` (the
-batch's queries when it runs over several segments, else 0) and
-`step.device_merge_queries` (the same where the step merges them on the
-device, else 0). Inside collect.assemble the host's cross-segment merge
-is the span `collect.merge_segments`. Inside `prof.trace` each span is
-also a record_function event of the trace.
+The phase timers, the serving path's spans and the step counters, and
+where each opens, are listed once, in utils/prof.py's docstring.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from functools import partial
 
 import numpy as np
@@ -95,13 +87,89 @@ from .step_graph import (
 )
 
 F32 = np.float32
-SCORER_MODES = ("fused", "fused_dv", "xla", "xla_rank")
 SCORER_ALIASES = {"plain": "xla"}
 
 
 def _pow2_at_least(n: int, lo: int = 1) -> int:
     n = max(n, lo)
     return 1 << int(np.ceil(np.log2(n)))
+
+
+def route_bucket(
+    planes,  # (post_doc, post_val, row_start, indptr) of a segment or shard
+    rows_cat: torch.Tensor,  # (B, S) i32 term rows of the batch's buckets
+    cbits_cat: torch.Tensor,  # (B, S) i32 coefficient bits
+    cols_cat,  # (B, 2) i32 piece columns, or None (no split)
+    off: int,  # the bucket's first row in the *_cat tensors
+    bucket,  # (n_blocks, block, bq, r_c)
+    *,
+    s: int,
+    k: int,
+    mode: str,  # "fused" | "fused_dv" | "xla" | "xla_rank"
+    scale: float,
+    clip: float,
+    sentinel: int,  # the scorers' local doc sentinel
+    doc_base: int,
+    split=None,  # (offs_dev, n_docs, P): doc-range pieces, or None
+    dv_plane=None,  # the (X+8, 256) dv plane ("fused_dv")
+):
+    """One bucket's device work, the route both batch steps take: the
+    plan tables expand from the bucket's (bq, S) rows and coefficient
+    bits, a piece's doc limits apply, the scorer is picked by (mode, k)
+    and the gid mask where(v > 0, dloc + doc_base, -1) applies. Returns
+    the bucket's (vals, gids), (bq, k) int32. It reads no tensor's value
+    on the host, so a step of such calls captures into a CUDA graph.
+
+    With split, plan rows are doc-range pieces: their record ranges come
+    from the resident quantile table offs_dev and the kernel limits each
+    piece to local docs [cols[0] * n_docs // P, cols[1] * n_docs // P).
+    The key bits are key_bits_for(s, sentinel)."""
+    from ..ops.fused import expand_plan_tables, fused_search, key_bits_for
+    from ..ops.fused_dv import fused_search_dv
+    from ..ops.packed import pack_tables, search_packed_tables
+    from ..ops.rank import rank_candidates_kernel
+
+    post_doc, post_val, row_start, indptr = planes
+    n_blocks, block, bq, r_c = bucket
+    cols_b = dlim = offs_dev = None
+    if split is not None:
+        offs_dev, n_docs, p = split
+        cols_b = cols_cat[off : off + bq]
+        dlim = ((cols_b.long() * n_docs) // p).to(torch.int32).reshape(
+            bq, 1, 2)
+    sr, rm, ab, dst = expand_plan_tables(
+        row_start, indptr, rows_cat[off : off + bq],
+        cbits_cat[off : off + bq], n_blocks, block, offs_dev=offs_dev,
+        cols=cols_b,
+    )
+    # the kernels serve k <= MAX_K (128); larger k takes the plain
+    # scorer, as the reference takes its XLA twin: by k alone
+    if mode in ("fused", "fused_dv") and k <= MAX_K:
+        kw = dict(
+            n_blocks=n_blocks, block=block, s=s, k=k, n_docs=sentinel,
+            scale=scale, clip=clip, r_c=r_c,
+            key_bits=key_bits_for(s, sentinel),
+        )
+        if mode == "fused_dv":
+            v, dloc = fused_search_dv(dv_plane, sr, rm, ab, dst, **kw)
+        else:
+            v, dloc = fused_search(
+                post_doc, post_val, sr, rm, ab, dst, dlim=dlim, **kw
+            )
+        return v, torch.where(v > 0, dloc + doc_base, torch.full_like(v, -1))
+    if mode == "xla_rank" and k <= MAX_K:
+        # the plain pack, then the rank-only kernel
+        d_key, ci = pack_tables(
+            post_doc, post_val, sr, rm, ab, scale, clip, n_blocks, block,
+            sentinel, dlim=dlim,
+        )
+        return rank_candidates_kernel(
+            d_key, ci, doc_base, block=block, s=s, k=k, n_docs=sentinel
+        )
+    return search_packed_tables(
+        post_doc, post_val, sr, rm, ab, scale, clip, doc_base,
+        n_blocks=n_blocks, block=block, s=s, k=k, n_docs=sentinel, dlim=dlim,
+    )
 
 
 def _batch_step(
@@ -121,25 +189,15 @@ def _batch_step(
     split_p: int = 0,  # quantile columns P (0 = splitting off)
     merge: bool = False,  # merge the segments' lists (_device_merges)
 ):
-    """The device work of one batch: per (segment x bucket) the plan
-    tables expand on the device from the shipped (bq, S) rows and
-    coefficient bits, the scorer runs, and the gid mask
-    where(v > 0, dloc + doc_base, -1) applies. Returns ONE (n_real, 2k)
-    int32 tensor — per-bucket [vals | gids] stacked in plan order, with
-    the pow-2 bq padding rows dropped by a gather whose indices ride in
-    rows_cat's tail (the same host->device copy). With merge, the tail
+    """The device work of one batch: route_bucket per (segment x
+    bucket), each segment's n_docs its sentinel. Returns ONE (n_real,
+    2k) int32 tensor — per-bucket [vals | gids] stacked in plan order,
+    with the pow-2 bq padding rows dropped by a gather whose indices ride
+    in rows_cat's tail (the same host->device copy). With merge, the tail
     holds instead the (n_real = nq, S) table of each query's stacked row
     in each segment (-1: none), and the output is each query's answer,
-    merged across the segments by ops/segment_merge.py. It reads no
-    tensor's value on the host, so it captures into a CUDA graph whole.
-
-    With split_p, plan rows are doc-range pieces: their record ranges
-    come from the resident quantile tables and the kernel limits each
-    piece to docs [cols[0] * n_docs // P, cols[1] * n_docs // P)."""
-    from ..ops.fused import expand_plan_tables, fused_search, key_bits_for
-    from ..ops.fused_dv import fused_search_dv
-    from ..ops.packed import pack_tables, search_packed_tables
-    from ..ops.rank import rank_candidates_kernel
+    merged across the segments by ops/segment_merge.py. It captures into
+    a CUDA graph whole."""
     from ..ops.segment_merge import segment_merge
 
     out_v, out_g = [], []
@@ -147,54 +205,17 @@ def _batch_step(
     for si, ((n_docs, doc_base, dev_seg), (_nd, s, buckets)) in enumerate(
         zip(segments, plan)
     ):
-        for n_blocks, block, bq, r_c in buckets:
-            rows_b = rows_cat[off : off + bq]
-            cbits_b = cbits_cat[off : off + bq]
-            cols_b = dlim = None
-            if split_p:
-                cols_b = cols_cat[off : off + bq]
-                dlim = (
-                    (cols_b.long() * n_docs) // split_p
-                ).to(torch.int32).reshape(bq, 1, 2)
-            off += bq
-            sr, rm, ab, dst = expand_plan_tables(
-                dev_seg.row_start, dev_seg.indptr, rows_b, cbits_b,
-                n_blocks, block,
-                offs_dev=offs_devs[si] if split_p else None, cols=cols_b,
+        planes = (dev_seg.post_doc, dev_seg.post_val, dev_seg.row_start,
+                  dev_seg.indptr)
+        split = (offs_devs[si], n_docs, split_p) if split_p else None
+        for bucket in buckets:
+            v, g = route_bucket(
+                planes, rows_cat, cbits_cat, cols_cat, off, bucket, s=s,
+                k=k, mode=mode, scale=scale, clip=clip, sentinel=n_docs,
+                doc_base=doc_base, split=split,
+                dv_plane=dv_planes[si] if dv_planes else None,
             )
-            # the kernels serve k <= MAX_K (128); larger k takes the plain
-            # scorer, as the reference takes its XLA twin: by k alone
-            if mode in ("fused", "fused_dv") and k <= MAX_K:
-                kw = dict(
-                    n_blocks=n_blocks, block=block, s=s, k=k,
-                    n_docs=n_docs, scale=scale, clip=clip, r_c=r_c,
-                    key_bits=key_bits_for(s, n_docs),
-                )
-                if mode == "fused_dv":
-                    v, dloc = fused_search_dv(
-                        dv_planes[si], sr, rm, ab, dst, **kw
-                    )
-                else:
-                    v, dloc = fused_search(
-                        dev_seg.post_doc, dev_seg.post_val, sr, rm, ab, dst,
-                        dlim=dlim, **kw,
-                    )
-                g = torch.where(v > 0, dloc + doc_base, torch.full_like(v, -1))
-            elif mode == "xla_rank" and k <= MAX_K:
-                # the plain pack, then the rank-only kernel
-                d_key, ci = pack_tables(
-                    dev_seg.post_doc, dev_seg.post_val, sr, rm, ab, scale,
-                    clip, n_blocks, block, n_docs,
-                )
-                v, g = rank_candidates_kernel(
-                    d_key, ci, doc_base, block=block, s=s, k=k, n_docs=n_docs
-                )
-            else:
-                v, g = search_packed_tables(
-                    dev_seg.post_doc, dev_seg.post_val, sr, rm, ab,
-                    scale, clip, doc_base, n_blocks=n_blocks, block=block,
-                    s=s, k=k, n_docs=n_docs,
-                )
+            off += bucket[2]
             out_v.append(v)
             out_g.append(g)
     stacked = torch.cat([torch.cat(out_v, 0), torch.cat(out_g, 0)], 1)
@@ -330,41 +351,126 @@ def slice_active_slots(slot_h: np.ndarray, coeff: np.ndarray):
     return slot_h[:, :s_active], coeff[:, :s_active]
 
 
-class SearchEngine:
-    """Single-process engine over one or more CSR segments on one torch
-    device. `device=None` means "cuda": on a machine without CUDA it
-    raises instead of running elsewhere; the CPU is asked for by name."""
+def active_slots(analysis):
+    """The frontend's analysis (slot_h, coeff, rows_g, found_g) with its
+    slots cut to the active pow-2 width (slice_active_slots); rows_g and
+    found_g may be None (no global rows: looked up per segment)."""
+    slot_h, coeff, rows_g, found_g = analysis
+    n_slots = slot_h.shape[1]
+    slot_h, coeff = slice_active_slots(slot_h, coeff)
+    s = coeff.shape[1]
+    if rows_g is not None and s != n_slots:
+        rows_g, found_g = rows_g[:, :s], found_g[:, :s]
+    return slot_h, coeff, rows_g, found_g
 
-    def __init__(self, config: IndexConfig | None = None, device=None):
+
+def no_hits(nq: int, k: int):
+    """(ids, scores) of a batch that has nothing to search."""
+    return np.full((nq, k), -1, np.int64), np.full((nq, k), -1, np.int64)
+
+
+def fill_buckets(plan_cache, key, natural, rows_p, a_p, cols, split,
+                 blocks):
+    """The host bucket fill of one plan, shared by both engines: the
+    natural plan [(plan-row indices, n_blocks, block, r_c)] fitted into
+    the plan-layout cache's cells under `key` (without a cache, each
+    bucket's rows rounded up to a power of two), and per bucket its
+    padded (bq, S) rows and f32 coefficients and, when splitting, its
+    (bq, 2) piece columns, appended to `blocks` = ([rows], [coefficients],
+    [columns]). Padding rows, and every row of a plan without pieces
+    (cols None), take the whole-row piece (0, P), so the columns stay
+    aligned with the bucket offsets. Returns (buckets, idxs): per bucket
+    (n_blocks, block, bq, r_c) and (plan-row indices, bq)."""
+    if plan_cache is not None:
+        cells = plan_cache.canonicalize(key, natural, rows_p.shape[0])
+    else:
+        cells = [(idx, nb, blk, rc, _pow2_at_least(len(idx)))
+                 for idx, nb, blk, rc in natural]
+    r_subs, a_subs, c_subs = blocks
+    s = rows_p.shape[1]
+    buckets, idxs = [], []
+    for idx, n_blocks, block, r_c, bq in cells:
+        r_sub = np.zeros((bq, s), np.int32)
+        a_sub = np.zeros((bq, s), F32)
+        r_sub[: len(idx)] = rows_p[idx]
+        a_sub[: len(idx)] = a_p[idx]
+        r_subs.append(r_sub)
+        a_subs.append(a_sub)
+        if split:
+            c_sub = np.zeros((bq, 2), np.int32)
+            c_sub[:, 1] = builder.SPLIT_QUANTILES
+            if cols is not None:
+                c_sub[: len(idx)] = cols[idx]
+            c_subs.append(c_sub)
+        buckets.append((n_blocks, block, bq, r_c))
+        idxs.append((idx, bq))
+    return buckets, idxs
+
+
+def piece_map(cols, qidx, pno, n_rows: int):
+    """What _collect needs of a plan's doc-range pieces: None where its
+    rows are the queries, else (qidx, pno, most pieces of a query, plan
+    rows)."""
+    if cols is None:
+        return None
+    return qidx, pno, int(pno.max()) + 1 if len(pno) else 1, n_rows
+
+
+def merge_pieces(v, g, pm, nq: int, k: int):
+    """Each query's top k over its doc-range pieces' ranked lists (v, g),
+    one row a piece: the pieces are doc-disjoint, so the merge of their
+    top ks is the unsplit ranking. Keeps the dtype of v and g."""
+    qidx, pno, mmax, _n = pm
+    if mmax <= 1:
+        return v, g
+    pv = np.full((nq, mmax, k), -1, v.dtype)
+    pg = np.full((nq, mmax, k), -1, g.dtype)
+    pv[qidx, pno] = v
+    pg[qidx, pno] = g
+    return _merge_ranked(pv.reshape(nq, mmax * k), pg.reshape(nq, mmax * k),
+                         k)
+
+
+class ServingEngine:
+    """The serving path that SearchEngine and DistributedSearchEngine
+    (parallel/dist.py) share: the scorer mode, the request check,
+    search, search_stream with its re-analysis rule, search_rerank,
+    warmup, preplan's loop, the block families and the split gate. A
+    subclass supplies `scorer_modes`, the modes it accepts, and:
+
+    - `_snapshot()`: None where there is no index to serve, else the
+      tuple of objects a batch's analysis holds for, the global stats
+      last. search_stream re-analyzes a prefetched batch whose snapshot
+      is no longer the engine's, object for object.
+    - `_natural_plans(analysis, k, mode, families)`: per plan-layout
+      key, the batch's plan rows and natural plan (preplan).
+    - `_dispatch(analysis, k)`: the host planning and the enqueued device
+      step of a batch, from the frontend's analysis (slot_h, coeff,
+      rows_g, found_g); nothing in it waits on the device.
+    - `_collect(fut)`: the device->host read and the (ids, scores).
+    - `_rerank_dots(qemb, gids, dim)`: search_rerank's candidate dots
+      and squared norms on the device.
+
+    Scorer modes: "fused" (the hand-written CUDA kernel; the default on
+    CUDA), "fused_dv" (SearchEngine only: the same kernel over one
+    interleaved doc|value plane), "xla" (the plain PyTorch scorer; the
+    default on the CPU; "plain" is its alias) and "xla_rank" (the plain
+    pack, then the rank-only kernel). All give the same ids and scores."""
+
+    scorer_modes: tuple = ()
+    # search's phase timers, as the reference records them: its single
+    # engine times search.analyze and search.score, its sharded one none
+    search_phases = True
+
+    def __init__(self, config, home, graph_device) -> None:
         self.config = config or IndexConfig()
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"SearchEngine(device={str(self.device)!r}): CUDA is not "
-                "available on this machine"
-            )
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {self.device}")
         self.frontend = QueryFrontend(self.config)
-        self.segments: list = []  # list[[SegmentHost, SegmentDevice]]
-        self.stats = GlobalStats(
-            np.zeros(0, np.uint64), np.zeros(0, np.int32), 0, 0
-        )
-        self.n_docs_total = 0
+        self._home = home  # the device the default scorer follows
         # None = "fused" on CUDA, "xla" on the CPU (scorer_mode)
         self.scorer: str | None = None
-        # segments are built on the device (builder.build_segment_device);
-        # False takes the host build path (builder.build_segment), which
-        # gives the same planes and results
+        # the index is built on the device; False takes the host build
+        # path, which gives the same planes and results
         self.device_build: bool = True
-        # segment lifecycle policy (the reference's): compact when the
-        # segment count passes auto_compact_segments, or when tombstoned
-        # docs' postings pass auto_compact_dead_frac of all postings;
-        # None turns that check off (_maybe_auto_compact)
-        self.auto_compact_segments: int | None = 4
-        self.auto_compact_dead_frac: float | None = 0.5
-        # None = scorer-tuned block families (ops/schedule.py)
-        self.block_families = None
         # smallest per-bucket n_blocks budget (pow-2)
         self.plan_min_blocks = 4
         # stable plan layouts (the reference's PlanLayoutCache): natural
@@ -377,11 +483,214 @@ class SearchEngine:
         # exactly. None = off (the reference's default). Only the fused
         # scorer with one block family takes it (_split_active).
         self.split_rows: int | None = None
-        # the compiled batch step on the card (engine/step_graph.py); the
-        # CPU runs the step eagerly
+        # the compiled batch step on the card (engine/step_graph.py);
+        # without one the step runs eagerly
         self._graphs = (
-            StepGraphs(self.device) if self.device.type == "cuda" else None
+            StepGraphs(graph_device) if graph_device is not None else None
         )
+
+    @property
+    def scorer_mode(self) -> str:
+        """The active scorer (the class docstring's modes)."""
+        if self.scorer is not None:
+            mode = SCORER_ALIASES.get(self.scorer, self.scorer)
+            if mode not in self.scorer_modes:
+                raise ValueError(f"unknown scorer {self.scorer!r}")
+            return mode
+        return "fused" if self._home.type == "cuda" else "xla"
+
+    def _mode_for(self, k: int) -> str:
+        """The scorer mode serving k: "fused_dv" is downgraded to
+        "fused" for k > 128, which the plain scorer serves over the
+        standard planes (the reference's dispatcher does the same)."""
+        mode = self.scorer_mode
+        return "fused" if mode == "fused_dv" and k > MAX_K else mode
+
+    def _families(self, mode: str):
+        """The planner's scorer-tuned block families (ops/schedule.py)."""
+        return FUSED_FAMILIES if mode.startswith("fused") else DEFAULT_FAMILIES
+
+
+    def _split_active(self, mode: str, k: int, families) -> bool:
+        """Splitting serves only the fused scorer with one block family
+        (ops/schedule.py split_pieces), for k the kernel serves."""
+        return (
+            self.split_rows is not None
+            and mode == "fused"
+            and k <= MAX_K
+            and len(families) == 1
+        )
+
+    def _check_request(self, k: int) -> None:
+        """Raise on an unknown scorer name or k < 1."""
+        self.scorer_mode  # noqa: B018 — validates the scorer name
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+
+    def _scale_clip(self):
+        """The step's f32 fixed-point scale and coefficient clip."""
+        scale = float(F32(2.0**self.config.scoring.scale_bits))
+        clip = float(
+            F32(int(spec.quant_clip_max(self.config.max_query_terms)))
+        )
+        return scale, clip
+
+    def search(self, queries, k: int = 10):
+        """Batched search: (ids, scores) int64 arrays of shape (nq, k),
+        ranked by (fixed-point score desc, global doc id asc)."""
+        self._check_request(k)
+        nq = len(queries)
+        snap = self._snapshot()
+        if nq == 0 or snap is None:
+            return no_hits(nq, k)
+        phase = prof.phase if self.search_phases else nullcontext
+        with phase("search.analyze"):
+            analysis = self.frontend.analyze_rows(queries, snap[-1])
+        with phase("search.score"):
+            return self._collect(self._dispatch(analysis, k))
+
+    def search_stream(self, query_batches, k: int = 10, depth: int = 2):
+        """Pipelined serving loop: yields (ids, scores) per input batch,
+        keeping up to `depth` batches in flight; text analysis of the
+        next batches runs on a worker thread. Analysis is re-run if the
+        engine was mutated between prefetch and dispatch (the prefetched
+        rows hold only for the index they were analyzed against)."""
+        self._check_request(k)
+
+        def analyze_job(queries):
+            snap = self._snapshot()  # identity-checked at dispatch
+            if len(queries) == 0 or snap is None:
+                return None
+            with dispatch_span(self._graphs, "stream.analyze"):
+                return snap, self.frontend.analyze_rows(queries, snap[-1])
+
+        def dispatch_job(queries, res):
+            now = self._snapshot()
+            if res is not None and (
+                now is None or any(a is not b for a, b in zip(res[0], now))
+            ):
+                res = analyze_job(queries)  # engine mutated mid-stream
+            if res is None and len(queries) and now is not None:
+                res = analyze_job(queries)  # built mid-stream
+            if res is None:
+                empty = no_hits(len(queries), k)
+                return lambda: empty
+            return partial(self._collect, self._dispatch(res[1], k))
+
+        yield from pipelined_stream(
+            query_batches, depth, analyze_job, dispatch_job,
+            partial(dispatch_span, self._graphs),
+        )
+
+    def warmup(
+        self,
+        queries=None,
+        nq: int = 8192,
+        k: int = 10,
+        terms_per_query: int = 8,
+        seed: int = 0,
+    ) -> None:
+        """Run one batch before traffic arrives: builds the kernel
+        library and seeds the plan layouts. Without `queries`, a
+        synthetic batch samples terms df-weighted from the vocabulary."""
+        snap = self._snapshot()
+        if snap is None or self.n_docs_total == 0:
+            return
+        if queries is not None:
+            self.search(queries, k=k)
+            return
+        self._check_request(k)
+        batch = synth_warmup_analysis(
+            snap[-1], self.config, nq, terms_per_query, seed
+        )
+        if batch is not None:
+            self._collect(self._dispatch(batch, k))
+
+    def search_rerank(self, queries, k: int = 10, dim: int = 256,
+                      candidates: int = 64):
+        """Hybrid retrieval: lexical candidate generation (top
+        max(k, candidates)), then a dense feature-hash rerank whose
+        candidate gather and exact integer dots run on the device
+        (`_rerank_dots`); only the f64 cosine and the quantized ordering
+        run on the host, from exact integers. Returns (ids,
+        rerank_scores_int, lexical_scores_int) int64 (nq, k), ranked
+        (rerank desc, lexical desc, gid asc); the same for both engines,
+        bit for bit."""
+        from ..ops.rerank import query_embeddings_int, rerank_order_int
+
+        self._check_request(k)
+        kk = max(k, candidates)
+        nq = len(queries)
+        snap = self._snapshot()
+        if nq == 0 or snap is None or self.n_docs_total == 0:
+            gids, lex = self.search(queries, k=kk)
+            return gids[:, :k], np.full((nq, k), -1, np.int64), lex[:, :k]
+        # one frontend pass feeds both stages
+        analysis = self.frontend.analyze_rows(queries, snap[-1])
+        gids, lex = self._collect(self._dispatch(analysis, kk))
+        qemb, ssq_q = query_embeddings_int(analysis[0], analysis[1], dim)
+        dots, cand_ssq = self._rerank_dots(qemb, gids, dim)
+        return rerank_order_int(
+            dots.cpu().numpy(), ssq_q, cand_ssq.cpu().numpy(), lex, gids, k
+        )
+
+    def preplan(self, query_batches, k: int = 10) -> None:
+        """Host-only: converge the plan-layout cache over representative
+        query batches before the first dispatch (numpy planning; with
+        splitting on, the quantile tables are built once first)."""
+        if self.plan_cache is None or self._snapshot() is None:
+            return
+        self._check_request(k)
+        mode = self._mode_for(k)
+        families = self._families(mode)
+        per_key: dict = {}
+        for queries in query_batches:
+            analysis = self.frontend.analyze_rows(
+                queries, self._snapshot()[-1])
+            for key, n_rows, natural in self._natural_plans(
+                analysis, k, mode, families
+            ):
+                ent = per_key.setdefault(key, [0, []])
+                ent[0] = max(ent[0], n_rows)
+                ent[1].append(natural)
+        for key, (n_rows, naturals) in per_key.items():
+            self.plan_cache.seed_plans(key, naturals, n_rows)
+
+
+class SearchEngine(ServingEngine):
+    """Single-process engine over one or more CSR segments on one torch
+    device. `device=None` means "cuda": on a machine without CUDA it
+    raises instead of running elsewhere; the CPU is asked for by name.
+    It serves through ServingEngine's path."""
+
+    scorer_modes = ("fused", "fused_dv", "xla", "xla_rank")
+
+    def __init__(self, config: IndexConfig | None = None, device=None):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SearchEngine(device={str(device)!r}): CUDA is not "
+                "available on this machine"
+            )
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {device}")
+        self.device = device
+        super().__init__(
+            config, device, device if device.type == "cuda" else None
+        )
+        self.segments: list = []  # list[[SegmentHost, SegmentDevice]]
+        self.stats = GlobalStats(
+            np.zeros(0, np.uint64), np.zeros(0, np.int32), 0, 0
+        )
+        self.n_docs_total = 0
+        # segment lifecycle policy (the reference's): compact when the
+        # segment count passes auto_compact_segments, or when tombstoned
+        # docs' postings pass auto_compact_dead_frac of all postings;
+        # None turns that check off (_maybe_auto_compact)
+        self.auto_compact_segments: int | None = 4
+        self.auto_compact_dead_frac: float | None = 0.5
+        # None = scorer-tuned block families (ops/schedule.py)
+        self.block_families = None
         self._drop_caches()
 
     # ------------------------------------------------------------- build
@@ -575,40 +884,17 @@ class SearchEngine:
         self._emb_cache[dim] = (torch.cat(embs, 0), torch.cat(ssqs, 0))
         return self._emb_cache[dim]
 
-    def search_rerank(self, queries, k: int = 10, dim: int = 256,
-                      candidates: int = 64):
-        """Hybrid retrieval: lexical candidate generation (top
-        max(k, candidates)), then a dense feature-hash rerank whose
-        candidate gather and exact integer dots run on the device
-        (ops/rerank.py gather_and_dot); only the f64 cosine and the
-        quantized ordering run on the host, from exact integers.
-        Returns (ids, rerank_scores_int, lexical_scores_int) int64
-        (nq, k), ranked (rerank desc, lexical desc, gid asc)."""
-        from ..ops import rerank as R
+    def _rerank_dots(self, qemb, gids, dim: int):
+        """ServingEngine.search_rerank's device stage: the candidates'
+        gather and exact integer dots against the resident embeddings
+        (ops/rerank.py gather_and_dot)."""
+        from ..ops.rerank import gather_and_dot
 
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        kk = max(k, candidates)
-        nq = len(queries)
-        if nq == 0 or self.n_docs_total == 0 or not self.segments:
-            gids, lex = self.search(queries, k=kk)
-            return gids[:, :k], np.full((nq, k), -1, np.int64), lex[:, :k]
-        # one frontend pass feeds both stages
-        slot_h, coeff, rows_g, found_g = self.frontend.analyze_rows(
-            queries, self.stats
-        )
-        gids, lex = self._collect(
-            self._dispatch(slot_h, coeff, kk, rows_g, found_g)
-        )
-        qemb, ssq_q = R.query_embeddings_int(slot_h, coeff, dim)
         emb, ssq = self._device_embeddings(dim)
         dev = self.device
-        dots, cand_ssq = R.gather_and_dot(
+        return gather_and_dot(
             emb, ssq, torch.from_numpy(qemb).to(dev),
             torch.from_numpy(gids.astype(np.int32)).to(dev),
-        )
-        return R.rerank_order_int(
-            dots.cpu().numpy(), ssq_q, cand_ssq.cpu().numpy(), lex, gids, k
         )
 
     def save(self, path: str) -> None:
@@ -632,115 +918,14 @@ class SearchEngine:
         return sum(d.nbytes() for _, d in self.segments)
 
     # ------------------------------------------------------------ search
-    @property
-    def scorer_mode(self) -> str:
-        """Active scorer: "fused" (the CUDA kernel; default on CUDA),
-        "fused_dv" (the same kernel over interleaved doc|value planes),
-        "xla" (the plain PyTorch scorer; default on the CPU; "plain" is
-        its alias) or "xla_rank" (the plain pack and the rank-only
-        kernel). All are bit-identical."""
-        if self.scorer is not None:
-            mode = SCORER_ALIASES.get(self.scorer, self.scorer)
-            if mode not in SCORER_MODES:
-                raise ValueError(f"unknown scorer {self.scorer!r}")
-            return mode
-        return "fused" if self.device.type == "cuda" else "xla"
-
-    def _mode_for(self, k: int) -> str:
-        """The scorer mode serving k: "fused_dv" is downgraded to
-        "fused" for k > 128, which the plain scorer serves over the
-        standard planes (the reference's dispatcher does the same)."""
-        mode = self.scorer_mode
-        return "fused" if mode == "fused_dv" and k > MAX_K else mode
+    def _snapshot(self):
+        """ServingEngine's snapshot: the global stats, None without
+        segments."""
+        stats = self.stats
+        return (stats,) if self.segments else None
 
     def _families(self, mode: str):
-        return self.block_families or (
-            FUSED_FAMILIES if mode.startswith("fused") else DEFAULT_FAMILIES
-        )
-
-    def _check_request(self, k: int) -> None:
-        """Raise on an unknown scorer name or k < 1."""
-        self.scorer_mode  # noqa: B018 — validates the scorer name
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-
-    def search(self, queries, k: int = 10):
-        """Batched search: (ids, scores) int64 arrays of shape (nq, k),
-        ranked by (fixed-point score desc, global doc id asc)."""
-        self._check_request(k)
-        nq = len(queries)
-        if nq == 0 or not self.segments:
-            return (
-                np.full((nq, k), -1, np.int64),
-                np.full((nq, k), -1, np.int64),
-            )
-        with prof.phase("search.analyze"):
-            slot_h, coeff, rows_g, found_g = self.frontend.analyze_rows(
-                queries, self.stats
-            )
-        with prof.phase("search.score"):
-            fut = self._dispatch(slot_h, coeff, k, rows_g, found_g)
-            return self._collect(fut)
-
-    def search_stream(self, query_batches, k: int = 10, depth: int = 2):
-        """Pipelined serving loop: yields (ids, scores) per input batch,
-        keeping up to `depth` batches in flight; text analysis of the
-        next batches runs on a worker thread. Analysis is re-run if the
-        engine was mutated between prefetch and dispatch."""
-        self._check_request(k)
-
-        def analyze_job(queries):
-            stats = self.stats  # snapshot: identity-checked at dispatch
-            if len(queries) == 0 or not self.segments:
-                return None
-            with dispatch_span(self._graphs, "stream.analyze"):
-                return (stats, self.frontend.analyze_rows(queries, stats))
-
-        def dispatch_job(queries, res):
-            if res is not None and res[0] is not self.stats:
-                res = analyze_job(queries)  # engine mutated mid-stream
-            if res is None and len(queries) and self.segments:
-                res = analyze_job(queries)  # built mid-stream
-            if res is None:
-                nq = len(queries)
-                empty = (
-                    np.full((nq, k), -1, np.int64),
-                    np.full((nq, k), -1, np.int64),
-                )
-                return lambda e=empty: e
-            _stats, (slot_h, coeff, rows_g, found_g) = res
-            fut = self._dispatch(slot_h, coeff, k, rows_g, found_g)
-            return partial(self._collect, fut)
-
-        yield from pipelined_stream(
-            query_batches, depth, analyze_job, dispatch_job,
-            partial(dispatch_span, self._graphs),
-        )
-
-    def warmup(
-        self,
-        queries=None,
-        nq: int = 8192,
-        k: int = 10,
-        terms_per_query: int = 8,
-        seed: int = 0,
-    ) -> None:
-        """Run one batch before traffic arrives: builds the kernel
-        library and seeds the plan layouts. Without `queries`, a
-        synthetic batch samples terms df-weighted from the vocabulary."""
-        if not self.segments or self.n_docs_total == 0:
-            return
-        if queries is not None:
-            self.search(queries, k=k)
-            return
-        self._check_request(k)
-        batch = synth_warmup_analysis(
-            self.stats, self.config, nq, terms_per_query, seed
-        )
-        if batch is None:
-            return
-        slot_h, coeff, rows_g, found_g = batch
-        self._collect(self._dispatch(slot_h, coeff, k, rows_g, found_g))
+        return self.block_families or super()._families(mode)
 
     def _plan_key(self, si, host, s, k, mode, families):
         """Plan-layout cache key; preplan() and _dispatch must agree."""
@@ -760,16 +945,30 @@ class SearchEngine:
             ]
         return seg_global
 
-    def _segment_inputs(self, slot_h, coeff, rows_g, found_g):
-        """Per segment (si, host, rows, found, a_seg) for a batch."""
+    def _segment_plans(self, analysis, k, mode, families):
+        """Per segment of a batch (si, host, plan-layout key, rows,
+        found, _segment_plan's tuple), its rows the frontend's global
+        rows where the segment's term table is the vocabulary, else
+        looked up (segment_rows)."""
+        slot_h, coeff, rows_g, found_g = active_slots(analysis)
+        s = coeff.shape[1]
         seg_global = self._seg_rows_global()
-        for si, (host, _dev) in enumerate(self.segments):
+        for si, (host, dev_seg) in enumerate(self.segments):
             if rows_g is not None and seg_global[si]:
                 rows, found = rows_g, found_g
             else:
                 rows, found = segment_rows(host.term_hash, slot_h)
             a_seg = np.where(found, coeff, F32(0.0)).astype(F32)
-            yield si, host, rows, found, a_seg
+            key = self._plan_key(si, host, s, k, mode, families)
+            yield si, host, key, rows, found, self._segment_plan(
+                si, host, dev_seg, rows, found, a_seg, families, mode, k)
+
+    def _natural_plans(self, analysis, k, mode, families):
+        for _si, _h, key, _r, _f, seg in self._segment_plans(
+            analysis, k, mode, families
+        ):
+            rows_p, _a, _c, _q, _p, natural, _n = seg
+            yield key, rows_p.shape[0], natural
 
     def _doc_quantiles(self, si: int, host, dev_seg):
         """(offs_h, offs_d): the segment's (T, P+1) int32 doc-quantile
@@ -803,16 +1002,6 @@ class SearchEngine:
                     dead = None
             self._dead_cache[si] = dead
         return self._dead_cache[si]
-
-    def _split_active(self, mode: str, k: int, families) -> bool:
-        """Splitting serves only the fused scorer with one block family
-        (ops/schedule.py split_pieces), for k the kernel serves."""
-        return (
-            self.split_rows is not None
-            and mode == "fused"
-            and k <= MAX_K
-            and len(families) == 1
-        )
 
     def _segment_plan(self, si, host, dev_seg, rows, found, a_seg,
                       families, mode, k):
@@ -874,122 +1063,55 @@ class SearchEngine:
             out.append(ent[2])
         return out
 
-    def preplan(self, query_batches, k: int = 10) -> None:
-        """Host-only: converge the plan-layout cache over representative
-        query batches before the first dispatch (numpy planning; with
-        splitting on, the quantile tables are built once first)."""
-        if self.plan_cache is None or not self.segments:
-            return
-        mode = self._mode_for(k)
-        self._check_request(k)
-        families = self._families(mode)
-        per_key: dict = {}
-        for queries in query_batches:
-            slot_h, coeff, rows_g, found_g = self.frontend.analyze_rows(
-                queries, self.stats
-            )
-            n_slots = slot_h.shape[1]
-            slot_h, coeff = slice_active_slots(slot_h, coeff)
-            nq, s = coeff.shape
-            if s != n_slots:
-                rows_g, found_g = rows_g[:, :s], found_g[:, :s]
-            for si, host, rows, found, a_seg in self._segment_inputs(
-                slot_h, coeff, rows_g, found_g
-            ):
-                rows_p, _a, _c, _q, _p, natural, _n = self._segment_plan(
-                    si, host, self.segments[si][1], rows, found, a_seg,
-                    families, mode, k,
-                )
-                key = self._plan_key(si, host, s, k, mode, families)
-                ent = per_key.setdefault(key, [0, []])
-                ent[0] = max(ent[0], rows_p.shape[0])
-                ent[1].append(natural)
-        for key, (nq, naturals) in per_key.items():
-            self.plan_cache.seed_plans(key, naturals, nq)
-
-    def _dispatch(self, slot_h, coeff, k: int, rows_g=None, found_g=None):
-        """Host planning + the device work of one query batch. Host work:
+    def _dispatch(self, analysis, k: int):
+        """Host planning + the device work of one query batch, from the
+        frontend's analysis (slot_h, coeff, rows_g, found_g). Host work:
         slot->row lookup per segment (skipped where the segment's term
         table is the global vocabulary), splitting into doc-range pieces
-        when on, bucketing, and one stacked (rows, coefficient bits)
-        array pair (plus the pieces' quantile columns); those are the
-        only host->device copies, from pinned memory on the card, where
-        the step is the plan's CUDA graph (engine/step_graph.py).
-        Returns the in-flight device output plus assembly metadata, so
-        callers can pipeline batches: nothing here waits on the card."""
+        when on, bucketing (fill_buckets), and one stacked (rows,
+        coefficient bits) array pair (plus the pieces' quantile columns);
+        those are the only host->device copies, from pinned memory on
+        the card, where the step is the plan's CUDA graph
+        (engine/step_graph.py). Returns the in-flight device output plus
+        assembly metadata, so callers can pipeline batches: nothing here
+        waits on the card."""
         mode = self._mode_for(k)
         self._check_request(k)
         with dispatch_span(self._graphs, "dispatch.plan"):
-            n_slots = slot_h.shape[1]
-            slot_h, coeff = slice_active_slots(slot_h, coeff)
-            nq, s = coeff.shape
-            if rows_g is not None and s != n_slots:
-                rows_g, found_g = rows_g[:, :s], found_g[:, :s]
+            nq = analysis[1].shape[0]
             families = self._families(mode)
             split = self._split_active(mode, k, families)
-            p = builder.SPLIT_QUANTILES
             plan = []  # per seg (n_docs, s, ((nb, blk, bq, rc), ...))
             slots = []  # per segment: its plan-layout key
             idx_map = []  # per segment: list of (plan-row indices, bq)
             piece_maps = []  # per segment: None | (qidx, pno, mmax, rows)
-            r_subs, a_subs, c_subs = [], [], []
+            blocks = ([], [], [])  # rows, coefficients, piece columns
             pairs = tiled_pairs = dead_pairs = 0
-            for si, host, rows, found, a_seg in self._segment_inputs(
-                slot_h, coeff, rows_g, found_g
+            for si, host, key, rows, found, seg in self._segment_plans(
+                analysis, k, mode, families
             ):
-                rows_p, a_p, cols, qidx, pno, natural, q_pairs = (
-                    self._segment_plan(
-                        si, host, self.segments[si][1], rows, found, a_seg,
-                        families, mode, k,
-                    )
-                )
+                rows_p, a_p, cols, qidx, pno, natural, q_pairs = seg
+                s = rows.shape[1]
                 pairs += int(q_pairs.sum())
                 if self._graphs is not None:  # dispatch_span's rule
                     dead = self._dead_rows(si, host)
                     if dead is not None:
                         dead_pairs += int(
                             (dead[rows] * found).sum(dtype=np.int64))
-                n_rows_p = rows_p.shape[0]
-                if self.plan_cache is not None:
-                    key = self._plan_key(si, host, s, k, mode, families)
-                    cells = self.plan_cache.canonicalize(
-                        key, natural, n_rows_p)
-                    slots.append(key)
-                else:
-                    cells = [
-                        (idx, nb, blk, rc, _pow2_at_least(len(idx)))
-                        for idx, nb, blk, rc in natural
-                    ]
-                    slots.append(None)
-                buckets, idxs = [], []
-                for idx, n_blocks, block, r_c, bq in cells:
-                    r_sub = np.zeros((bq, s), np.int32)
-                    a_sub = np.zeros((bq, s), F32)
-                    r_sub[: len(idx)] = rows_p[idx]
-                    a_sub[: len(idx)] = a_p[idx]
-                    r_subs.append(r_sub)
-                    a_subs.append(a_sub)
-                    if split:
-                        # padding rows and unsplit (empty) segments take
-                        # the whole-row piece (0, P): cols stay aligned
-                        # with the bucket offsets across all segments
-                        c_sub = np.zeros((bq, 2), np.int32)
-                        c_sub[:, 1] = p
-                        if cols is not None:
-                            c_sub[: len(idx)] = cols[idx]
-                        c_subs.append(c_sub)
-                    buckets.append((n_blocks, block, bq, r_c))
-                    idxs.append((idx, bq))
+                buckets, idxs = fill_buckets(
+                    self.plan_cache, key, natural, rows_p, a_p, cols, split,
+                    blocks,
+                )
+                slots.append(key if self.plan_cache is not None else None)
+                for (idx, _), (n_blocks, _blk, _bq, r_c) in zip(
+                    idxs, buckets
+                ):
                     if tiled_route(mode=mode, k=k, split=split, r_c=r_c,
                                    n_blocks=n_blocks, s=s):
                         tiled_pairs += int(q_pairs[idx].sum())
                 plan.append((host.n_docs, s, tuple(buckets)))
                 idx_map.append(idxs)
-                piece_maps.append(
-                    None if cols is None
-                    else (qidx, pno, int(pno.max()) + 1 if len(pno) else 1,
-                          n_rows_p)
-                )
+                piece_maps.append(piece_map(cols, qidx, pno, rows_p.shape[0]))
             # the read-back: the real (non-pad) output rows are gathered
             # on the device before the single device->host read, or, where
             # the step merges the segments, each query's stacked row in
@@ -1022,10 +1144,10 @@ class SearchEngine:
             n_tail = len(flat) if merge else n_real
             tail = np.zeros((-(-n_tail // s), s), np.int32)
             tail.reshape(-1)[: len(flat)] = flat
-            r_all = np.concatenate(r_subs + [tail], axis=0)
-            inputs = (r_all, np.concatenate(a_subs, axis=0).view(np.int32))
+            r_all = np.concatenate(blocks[0] + [tail], axis=0)
+            inputs = (r_all, np.concatenate(blocks[1], axis=0).view(np.int32))
             if split:
-                inputs += (np.concatenate(c_subs),)
+                inputs += (np.concatenate(blocks[2]),)
             if self._graphs is not None:  # dispatch_span's rule
                 prof.count("step.pairs", pairs)
                 prof.count("step.tiled_pairs", tiled_pairs)
@@ -1033,11 +1155,7 @@ class SearchEngine:
                 prof.count("step.segment_merge_queries",
                            nq if len(plan) > 1 else 0)
                 prof.count("step.device_merge_queries", nq if merge else 0)
-        sc = self.config.scoring
-        scale = float(F32(2.0**sc.scale_bits))
-        clip = float(
-            F32(int(spec.quant_clip_max(self.config.max_query_terms)))
-        )
+        scale, clip = self._scale_clip()
         with dispatch_span(self._graphs, "dispatch.enqueue"):
             segs = [(h.n_docs, h.doc_base, d) for h, d in self.segments]
             dv = self._dv_planes() if mode == "fused_dv" else None
@@ -1046,7 +1164,7 @@ class SearchEngine:
                  for si, (h, d) in enumerate(self.segments)]
                 if split else None
             )
-            split_p = p if split else 0
+            split_p = builder.SPLIT_QUANTILES if split else 0
             plan = tuple(plan)
             step = partial(
                 _batch_step, segs, plan=plan, k=k, scale=scale, clip=clip,
@@ -1100,17 +1218,8 @@ class SearchEngine:
                     seg_v[idx] = host[off : off + len(idx), :k]
                     seg_g[idx] = host[off : off + len(idx), k:]
                     off += len(idx)
-                if pm is not None and pm[2] > 1:
-                    # pieces are doc-disjoint, so the merge of their top-ks
-                    # is the unsplit ranking (as for segments below)
-                    qidx, pno, mmax, _n = pm
-                    pv = np.full((nq, mmax, k), -1, np.int32)
-                    pg = np.full((nq, mmax, k), -1, np.int32)
-                    pv[qidx, pno] = seg_v
-                    pg[qidx, pno] = seg_g
-                    seg_v, seg_g = _merge_ranked(
-                        pv.reshape(nq, mmax * k), pg.reshape(nq, mmax * k), k
-                    )
+                if pm is not None:
+                    seg_v, seg_g = merge_pieces(seg_v, seg_g, pm, nq, k)
                 all_vals.append(seg_v)
                 all_gids.append(seg_g)
             if len(all_vals) == 1:

@@ -15,13 +15,17 @@ over the shards (parallel/mesh.py): shard i's tensors live on
 `mesh.devices[i]`, and the reference's two collectives are
 `mesh.all_gather` (the candidates of a batch, then one merge on the
 mesh's first device, ops/topk.py) and `mesh.psum` (the build's df and
-the rerank's integer dots). A search step, per shard and bucket: plan
-expansion, the scorer (the fused kernel, with a doc-range limit when
-splitting; the plain pack and the rank-only kernel; or the plain scorer
-for "xla" and k > 128), the gid mask; then the gather and merge. The
-scorers see the fleet-uniform sentinel n_docs = d_pad - 1, which lies
-past every shard's real local ids. Scores are integer fixed point, so
-rankings are bit-identical for every shard count.
+the rerank's integer dots). The engine serves through the path it
+shares with SearchEngine (engine/engine.py ServingEngine: the request
+check, search, search_stream, search_rerank, warmup, preplan's loop;
+fill_buckets; merge_pieces): it supplies its planning over the shards,
+`_dispatch` and `_collect`. A search step, per shard and bucket, is the
+single engine's route (engine.py route_bucket: plan expansion, the
+scorer with a doc-range limit when splitting, the gid mask); then the
+gather and merge. The scorers see the fleet-uniform sentinel n_docs =
+d_pad - 1, which lies past every shard's real local ids. Scores are
+integer fixed point, so rankings are bit-identical for every shard
+count.
 
 The sharded build (device_build, the default) packs every shard on its
 device through index/builder.py's chunked device build: sort the
@@ -43,15 +47,15 @@ import torch
 
 from ..config import IndexConfig
 from ..engine.engine import (
-    SCORER_ALIASES,
+    ServingEngine,
+    active_slots,
     delete_from_hosts,
-    pipelined_stream,
-    slice_active_slots,
-    synth_warmup_analysis,
+    fill_buckets,
+    merge_pieces,
+    piece_map,
+    route_bucket,
 )
-from ..engine.query import QueryFrontend
 from ..engine.step_graph import (
-    StepGraphs,
     dispatch_span,
     resident_key,
     run_step,
@@ -60,19 +64,11 @@ from ..engine.step_graph import (
 from ..index import builder
 from ..index.csr import GlobalStats, merge_stats, round_up
 from ..ops.fused import MAX_K
-from ..ops.plan_cache import PlanLayoutCache
-from ..ops.schedule import (
-    DEFAULT_FAMILIES,
-    FUSED_FAMILIES,
-    plan_batch_sharded,
-    split_pieces_sharded,
-)
+from ..ops.schedule import plan_batch_sharded, split_pieces_sharded
 from ..ops.topk import merge_candidates
-from ..oracle import spec
 from .mesh import Mesh, all_gather, make_mesh, psum
 
 F32 = np.float32
-SCORER_MODES = ("fused", "xla", "xla_rank")
 
 
 def _put(a: np.ndarray, device) -> torch.Tensor:
@@ -513,69 +509,35 @@ def _sharded_batch_step(
     n_loc=None,  # per shard int: true local doc counts
     split_p: int = 0,  # quantile columns P (0 = splitting off)
 ):
-    """The device work of one batch: per shard and bucket, the plan
-    tables expand on the shard's device from its resident global-row
-    tables, the scorer runs, and the gid mask applies; then one
-    all_gather of every shard's candidates onto the mesh's first device
-    and one merge give the global top-k. Returns ONE (B_total, 2k) int32
-    tensor [vals | gids], so a batch costs one device->host read.
+    """The device work of one batch: per shard, route_bucket per bucket
+    on the shard's device over its resident global-row tables, with the
+    fleet-uniform sentinel d_pad - 1 (every shard's real local ids are
+    <= d_pad - 2); then one all_gather of every shard's candidates onto
+    the mesh's first device and one merge give the global top-k. Returns
+    ONE (B_total, 2k) int32 tensor [vals | gids], so a batch costs one
+    device->host read.
 
     split_p > 0 (doc-range splitting): plan rows are PIECES covering
     quantile columns [c0, c1); each shard's record ranges come from its
     resident quantile table and its kernel keeps only ITS local docs
     [c0*n_s/P, c1*n_s/P): the piece structure is shared, the doc limits
     are per shard."""
-    from ..ops.fused import expand_plan_tables, fused_search, key_bits_for
-    from ..ops.packed import pack_tables, search_packed_tables
-    from ..ops.rank import rank_candidates_kernel
-
     s, buckets = plan
-    # d_pad - 1 is a safe uniform local sentinel: every shard's real
-    # local ids are <= d_pad - 2 (d_pad >= max local docs + 1)
-    sentinel = d_pad - 1
-    kb = key_bits_for(s, sentinel)
     shard_v, shard_g = [], []
     for i in range(mesh_.size):
         dev = mesh_.devices[i]
-        pd, pv, base = post_doc[i], post_val[i], doc_base[i]
-        ipg, rsg = indptr_g[i], row_start_g[i]
+        planes = (post_doc[i], post_val[i], row_start_g[i], indptr_g[i])
+        split = (quant[i], n_loc[i], split_p) if split_p else None
         parts_v, parts_g = [], []
         off = 0
-        for n_blocks, block, bq, r_c in buckets:
-            rows_b = rows_cat[dev][off : off + bq]
-            cbits_b = cbits_cat[dev][off : off + bq]
-            cols_b = dlim = None
-            if split_p:
-                cols_b = cols_cat[dev][off : off + bq]
-                dlim = (
-                    (cols_b.long() * n_loc[i]) // split_p
-                ).to(torch.int32).reshape(bq, 1, 2)
-            off += bq
-            sr, rm, ab, dst = expand_plan_tables(
-                rsg, ipg, rows_b, cbits_b, n_blocks, block,
-                offs_dev=quant[i] if split_p else None, cols=cols_b,
+        for bucket in buckets:
+            v, g = route_bucket(
+                planes, rows_cat[dev], cbits_cat[dev],
+                cols_cat[dev] if split_p else None, off, bucket, s=s, k=k,
+                mode=mode, scale=scale, clip=clip, sentinel=d_pad - 1,
+                doc_base=doc_base[i], split=split,
             )
-            if mode == "fused" and k <= MAX_K:
-                v, dloc = fused_search(
-                    pd, pv, sr, rm, ab, dst, n_blocks=n_blocks,
-                    block=block, s=s, k=k, n_docs=sentinel, scale=scale,
-                    clip=clip, r_c=r_c, key_bits=kb, dlim=dlim,
-                )
-                g = torch.where(v > 0, dloc + base, torch.full_like(v, -1))
-            elif mode == "xla_rank" and k <= MAX_K:
-                d_key, ci = pack_tables(
-                    pd, pv, sr, rm, ab, scale, clip, n_blocks, block,
-                    sentinel, dlim=dlim,
-                )
-                v, g = rank_candidates_kernel(
-                    d_key, ci, base, block=block, s=s, k=k, n_docs=sentinel
-                )
-            else:
-                v, g = search_packed_tables(
-                    pd, pv, sr, rm, ab, scale, clip, base,
-                    n_blocks=n_blocks, block=block, s=s, k=k,
-                    n_docs=sentinel, dlim=dlim,
-                )
+            off += bucket[2]
             parts_v.append(v)
             parts_g.append(g)
         shard_v.append(torch.cat(parts_v, 0))  # (B_total, k)
@@ -632,42 +594,29 @@ def _sharded_gather_dots(
     return psum(dots_sh, mesh_.dst), psum(ssq_sh, mesh_.dst)
 
 
-class DistributedSearchEngine:
+class DistributedSearchEngine(ServingEngine):
     """Search engine over a `docs` mesh of torch devices (the same
-    results as the single SearchEngine, bit for bit; tested). mesh None
-    means make_mesh(): one shard a card, and without CUDA it raises; the
-    CPU is asked for by name (make_mesh(n, device="cpu"))."""
+    results as the single SearchEngine, bit for bit; tested), serving
+    through ServingEngine's path (engine/engine.py). mesh None means
+    make_mesh(): one shard a card, and without CUDA it raises; the CPU is
+    asked for by name (make_mesh(n, device="cpu")). Its scorers are the
+    reference sharded engine's: no "fused_dv". With doc-range splitting
+    the piece STRUCTURE is shared by every shard (decided from the
+    max-over-shards need); record ranges and doc limits are per shard,
+    read on the device from resident quantile tables
+    (_sharded_quantiles). The step is a CUDA graph when every shard sits
+    on one card; a mesh over several cards runs it eagerly."""
+
+    scorer_modes = ("fused", "xla", "xla_rank")
+    search_phases = False
 
     def __init__(self, config: IndexConfig | None = None,
                  mesh: Mesh | None = None):
-        self.config = config or IndexConfig()
         self.mesh = mesh or make_mesh()
-        self.frontend = QueryFrontend(self.config)
+        dst = self.mesh.dst
+        one_card = len(self.mesh.distinct) == 1 and dst.type == "cuda"
+        super().__init__(config, dst, dst if one_card else None)
         self.index: ShardedIndex | None = None
-        # None = "fused" on CUDA meshes, "xla" on the CPU (scorer_mode);
-        # "xla_rank" = the plain pack and the rank-only kernel
-        self.scorer: str | None = None
-        # the device build (build_sharded_spmd); the host build gives the
-        # same index
-        self.device_build: bool = True
-        # smallest per-bucket n_blocks budget (see SearchEngine)
-        self.plan_min_blocks: int = 4
-        # doc-range splitting (see SearchEngine.split_rows): heavy
-        # queries become doc-disjoint pieces. The piece STRUCTURE is
-        # shared by every shard (decided from the max-over-shards need);
-        # record ranges and doc limits are per shard, read on the device
-        # from resident quantile tables (_sharded_quantiles). Off by
-        # default, as in the reference.
-        self.split_rows: int | None = None
-        # stable plan layouts (ops/plan_cache.py; see SearchEngine)
-        self.plan_cache: PlanLayoutCache | None = PlanLayoutCache()
-        # the compiled batch step (engine/step_graph.py) when every shard
-        # sits on one card; a mesh over several cards runs it eagerly
-        self._graphs = (
-            StepGraphs(self.mesh.dst)
-            if len(self.mesh.distinct) == 1 and self.mesh.dst.type == "cuda"
-            else None
-        )
         self._drop_caches()
 
     def _drop_caches(self) -> None:
@@ -901,44 +850,16 @@ class DistributedSearchEngine:
         self._emb_cache = (dim, tuple(idx.post_val), out)
         return out
 
-    def search_rerank(self, queries, k: int = 10, dim: int = 256,
-                      candidates: int = 64):
-        """Sharded hybrid retrieval, bit-identical to
-        SearchEngine.search_rerank (tested): lexical candidate
-        generation, then each shard dots the candidates it owns against
-        its resident int8 embeddings and an integer psum assembles the
-        exact dots; the f64 cosine and the quantized ordering run on the
-        host from those exact integers. Returns (ids, rerank_int,
-        lexical_int) int64 (nq, k)."""
-        from ..ops.rerank import query_embeddings_int, rerank_order_int
-
-        self._check_request(k)
-        kk = max(k, candidates)
-        nq = len(queries)
-        if nq == 0 or self.index is None or self.n_docs_total == 0:
-            gids, lex = self.search(queries, k=kk)
-            ri = np.full((nq, k), -1, np.int64)
-            return gids[:, :k], ri, lex[:, :k]
+    def _rerank_dots(self, qemb, gids, dim: int):
+        """ServingEngine.search_rerank's device stage: each shard dots
+        the candidates it owns against its resident int8 embeddings and
+        an integer psum assembles the exact dots (_sharded_gather_dots)."""
         idx = self.index
-        # one frontend pass feeds both stages
-        analyzed = self.frontend.analyze_rows(queries, idx.stats)
-        slot_h, coeff = analyzed[0], analyzed[1]
-        gids, lex = self._collect(
-            self._dispatch(queries, kk, analyzed=analyzed)
-        )
-        qemb, ssq_q = query_embeddings_int(slot_h, coeff, dim)
         emb, ssq = self._sharded_embeddings(dim)
-        dots, cand_ssq = _sharded_gather_dots(
-            emb,
-            ssq,
-            idx.doc_base,
-            [h.n_docs for h in idx.hosts],
+        return _sharded_gather_dots(
+            emb, ssq, idx.doc_base, [h.n_docs for h in idx.hosts],
             _replicate(qemb, self.mesh),
-            _replicate(gids.astype(np.int32), self.mesh),
-            mesh_=self.mesh,
-        )
-        return rerank_order_int(
-            dots.cpu().numpy(), ssq_q, cand_ssq.cpu().numpy(), lex, gids, k
+            _replicate(gids.astype(np.int32), self.mesh), mesh_=self.mesh,
         )
 
     def save(self, path: str) -> None:
@@ -955,78 +876,11 @@ class DistributedSearchEngine:
 
         return load_sharded(path, mesh=mesh)
 
-    @property
-    def scorer_mode(self) -> str:
-        """Active scorer of the batch step: "fused" (the CUDA kernel; the
-        default on CUDA), "xla" (the plain scorer; the default on the
-        CPU; "plain" is its alias) or "xla_rank" (the plain pack and the
-        rank-only kernel). All bit-identical (tested)."""
-        if self.scorer is not None:
-            mode = SCORER_ALIASES.get(self.scorer, self.scorer)
-            if mode not in SCORER_MODES:
-                raise ValueError(f"unknown scorer {self.scorer!r}")
-            return mode
-        return "fused" if self.mesh.dst.type == "cuda" else "xla"
-
-    def _check_request(self, k: int) -> None:
-        """Raise on an unknown scorer name or k < 1."""
-        self.scorer_mode  # noqa: B018 — validates the scorer name
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-
-    def search(self, queries, k: int = 10):
-        """Batched search: (ids, scores) int64 arrays of shape (nq, k),
-        ranked by (fixed-point score desc, global doc id asc)."""
-        self._check_request(k)
-        nq = len(queries)
-        if self.index is None or nq == 0:
-            return (
-                np.full((nq, k), -1, np.int64),
-                np.full((nq, k), -1, np.int64),
-            )
-        return self._collect(self._dispatch(queries, k))
-
-    def search_stream(self, query_batches, k: int = 10, depth: int = 2):
-        """Pipelined sharded serving loop (the contract of
-        SearchEngine.search_stream): one batch step per batch, up to
-        `depth` batches in flight; text analysis prefetched on a worker
-        thread and re-run if the index was swapped between prefetch and
-        dispatch (the prefetched rows are valid only for the index they
-        were analyzed against)."""
-        self._check_request(k)
-
-        def analyze_job(queries):
-            idx = self.index  # snapshot: identity-checked at dispatch
-            if len(queries) == 0 or idx is None:
-                return None
-            stats = idx.stats  # O(delta) updates replace stats in place
-            return (
-                (idx, stats),
-                self.frontend.analyze_rows(queries, stats),
-            )
-
-        def dispatch_job(queries, res):
-            if res is not None and (
-                res[0][0] is not self.index
-                or self.index.stats is not res[0][1]
-            ):
-                res = analyze_job(queries)  # index mutated mid-stream
-            if res is None and len(queries) and self.index is not None:
-                res = analyze_job(queries)  # built mid-stream
-            if res is None:
-                nq = len(queries)
-                empty = (
-                    np.full((nq, k), -1, np.int64),
-                    np.full((nq, k), -1, np.int64),
-                )
-                return lambda e=empty: e
-            fut = self._dispatch(queries, k, analyzed=res[1])
-            return partial(self._collect, fut)
-
-        yield from pipelined_stream(
-            query_batches, depth, analyze_job, dispatch_job,
-            partial(dispatch_span, self._graphs),
-        )
+    def _snapshot(self):
+        """ServingEngine's snapshot: the index and its stats (O(delta)
+        updates replace the stats in place), None without an index."""
+        idx = self.index
+        return None if idx is None else (idx, idx.stats)
 
     def _plan_key(self, s, k, mode):
         """Plan-layout cache key; preplan() and _dispatch must agree."""
@@ -1034,16 +888,6 @@ class DistributedSearchEngine:
         return (
             idx.n_shards, idx.d_pad, idx.t_pad, idx.x_rows, s, k, mode,
             self.plan_min_blocks, self.split_rows,
-        )
-
-    def _split_active(self, mode, k, families) -> bool:
-        """Splitting serves only the fused scorer with one block family,
-        for k the kernel serves (SearchEngine._split_active's gate)."""
-        return (
-            self.split_rows is not None
-            and mode == "fused"
-            and k <= MAX_K
-            and len(families) == 1
         )
 
     def _doc_quantiles(self):
@@ -1074,11 +918,14 @@ class DistributedSearchEngine:
         )
         return offs_h, offs_d, n_loc
 
-    def _batch_plan(self, rows, found, a_all, mode, k, families):
-        """Shared by preplan and _dispatch: the batch's natural plan
-        plus (when splitting) the piece table. Returns (rows_p, a_p,
-        cols, qidx, pno, natural); cols/qidx/pno are None when the plan
-        rows are the queries themselves."""
+    def _batch_plan(self, analysis, mode, k, families):
+        """Shared by preplan and _dispatch: the analyzed batch's slots cut
+        to the active pow-2 width, its natural plan and (when splitting)
+        the piece table. Returns (rows_p, a_p, cols, qidx, pno, natural);
+        cols/qidx/pno are None when the plan rows are the queries
+        themselves."""
+        _slot_h, coeff, rows, found = active_slots(analysis)
+        a_all = np.where(found, coeff, F32(0.0)).astype(F32)
         idx = self.index
         lens_sh = (
             idx.indptr_g[:, rows + 1] - idx.indptr_g[:, rows]
@@ -1101,135 +948,50 @@ class DistributedSearchEngine:
         )
         return rows[qidx], a_all[qidx], cols, qidx, pno, natural
 
-    def _families(self, mode: str):
-        return FUSED_FAMILIES if mode == "fused" else DEFAULT_FAMILIES
-
-    def _active(self, analyzed):
-        """(rows, found, a_all, s) of an analyzed batch, its slots cut
-        to the active pow-2 width."""
-        slot_h, coeff, rows, found = analyzed
-        n_slots = slot_h.shape[1]
-        slot_h, coeff = slice_active_slots(slot_h, coeff)
-        s = slot_h.shape[1]
-        if s != n_slots:
-            rows, found = rows[:, :s], found[:, :s]
-        a_all = np.where(found, coeff, F32(0.0)).astype(F32)
-        return rows, found, a_all, s
-
-    def preplan(self, query_batches, k: int = 10) -> None:
-        """Host-only: converge the plan-layout cache over representative
-        batches before the first dispatch (see SearchEngine.preplan)."""
-        if self.plan_cache is None or self.index is None:
-            return
-        self._check_request(k)
-        mode = self.scorer_mode
-        families = self._families(mode)
-        per_key: dict = {}
-        for queries in query_batches:
-            rows, found, a_all, s = self._active(
-                self.frontend.analyze_rows(queries, self.index.stats)
-            )
-            rows_p, _a_p, _cols, _qidx, _pno, natural = (
-                self._batch_plan(rows, found, a_all, mode, k, families)
-            )
-            key = self._plan_key(s, k, mode)
-            ent = per_key.setdefault(key, [0, []])
-            ent[0] = max(ent[0], rows_p.shape[0])
-            ent[1].append(natural)
-        for key, (nq, naturals) in per_key.items():
-            self.plan_cache.seed_plans(key, naturals, nq)
-
-    def warmup(
-        self,
-        queries=None,
-        nq: int = 8192,
-        k: int = 10,
-        terms_per_query: int = 8,
-        seed: int = 0,
-    ) -> None:
-        """Run one batch before traffic arrives: builds the kernel
-        library and seeds the plan layouts (see SearchEngine.warmup).
-        Without `queries`, a synthetic batch samples terms df-weighted
-        from the vocabulary."""
-        if self.index is None or self.n_docs_total == 0:
-            return
-        if queries is not None:
-            self.search(queries, k=k)
-            return
-        self._check_request(k)
-        batch = synth_warmup_analysis(
-            self.index.stats, self.config, nq, terms_per_query, seed
+    def _natural_plans(self, analysis, k, mode, families):
+        rows_p, _a, _c, _q, _p, natural = self._batch_plan(
+            analysis, mode, k, families
         )
-        if batch is None:
-            return
-        # _dispatch only takes len() of `queries`; the analysis is given
-        self._collect(self._dispatch(range(nq), k, analyzed=batch))
+        key = self._plan_key(rows_p.shape[1], k, mode)
+        yield key, rows_p.shape[0], natural
 
-    def _dispatch(self, queries, k: int, analyzed=None):
-        """Host planning and the device work of one query batch. Rows
+    def _dispatch(self, analysis, k: int):
+        """Host planning and the device work of one query batch, from
+        the frontend's analysis (slot_h, coeff, rows_g, found_g). Rows
         are global, so the host does ONE vocab lookup (inside the
         frontend) and ships one (B_total, S) rows/coefficient-bits pair
-        (plus the pieces' quantile columns) to each distinct device of
-        the mesh, from pinned memory on the card; per-shard plan tables
-        expand there. Block budgets are scorer-tuned families,
-        max-over-shards per bucket. When every shard sits on one device
-        the step is the plan's CUDA graph on a card (engine/step_graph.py,
-        the reference's one shard_map program); a mesh over several
-        cards runs it eagerly (untested: one card is in scope). Returns
-        the in-flight device output plus assembly metadata: nothing here
-        waits on the card."""
+        (plus the pieces' quantile columns; fill_buckets) to each
+        distinct device of the mesh, from pinned memory on the card;
+        per-shard plan tables expand there. Block budgets are
+        scorer-tuned families, max-over-shards per bucket. When every
+        shard sits on one device the step is the plan's CUDA graph on a
+        card (engine/step_graph.py, the reference's one shard_map
+        program); a mesh over several cards runs it eagerly (untested:
+        one card is in scope). Returns the in-flight device output plus
+        assembly metadata: nothing here waits on the card."""
         idx = self.index
-        nq = len(queries)
-        if analyzed is None:
-            analyzed = self.frontend.analyze_rows(queries, idx.stats)
-        mode = self.scorer_mode
-        sc = self.config.scoring
-        scale = float(F32(2.0**sc.scale_bits))
-        clip = float(
-            F32(int(spec.quant_clip_max(self.config.max_query_terms)))
-        )
+        nq = analysis[1].shape[0]
+        mode = self._mode_for(k)
+        scale, clip = self._scale_clip()
         with dispatch_span(self._graphs, "dispatch.plan"):
-            rows, found, a_all, s = self._active(analyzed)
             families = self._families(mode)
             split = self._split_active(mode, k, families)
-            p = builder.SPLIT_QUANTILES
             rows_p, a_p, cols, qidx, pno, natural = self._batch_plan(
-                rows, found, a_all, mode, k, families
+                analysis, mode, k, families
             )
-            n_rows_p = rows_p.shape[0]
+            s = rows_p.shape[1]
             slot = None
             if self.plan_cache is not None:
                 slot = self._plan_key(s, k, mode)
-                cells = self.plan_cache.canonicalize(slot, natural, n_rows_p)
-            else:
-                cells = [
-                    (
-                        idx_q, nb, blk, rc,
-                        1 << int(np.ceil(np.log2(max(len(idx_q), 1)))),
-                    )
-                    for idx_q, nb, blk, rc in natural
-                ]
-            buckets, idxs, r_subs, a_subs, c_subs = [], [], [], [], []
-            for idx_q, n_blocks, block, r_c, bq in cells:
-                r_sub = np.zeros((bq, s), np.int32)
-                a_sub = np.zeros((bq, s), F32)
-                r_sub[: len(idx_q)] = rows_p[idx_q]
-                a_sub[: len(idx_q)] = a_p[idx_q]
-                r_subs.append(r_sub)
-                a_subs.append(a_sub)
-                if split:
-                    # padding rows take the whole-row piece (0, P) so
-                    # cols_cat stays aligned with the bucket offsets
-                    c_sub = np.zeros((bq, 2), np.int32)
-                    c_sub[:, 1] = p
-                    c_sub[: len(idx_q)] = cols[idx_q]
-                    c_subs.append(c_sub)
-                buckets.append((n_blocks, block, bq, r_c))
-                idxs.append((idx_q, bq))
-            inputs = (np.concatenate(r_subs, axis=0),
-                      np.concatenate(a_subs, axis=0).view(np.int32))
+            blocks = ([], [], [])
+            buckets, idxs = fill_buckets(
+                self.plan_cache, slot, natural, rows_p, a_p, cols, split,
+                blocks,
+            )
+            inputs = (np.concatenate(blocks[0], axis=0),
+                      np.concatenate(blocks[1], axis=0).view(np.int32))
             if split:
-                inputs += (np.concatenate(c_subs),)
+                inputs += (np.concatenate(blocks[2]),)
         with dispatch_span(self._graphs, "dispatch.enqueue"):
             plan = (s, tuple(buckets))
             kw = dict(k=k, plan=plan, d_pad=idx.d_pad, scale=scale,
@@ -1239,7 +1001,8 @@ class DistributedSearchEngine:
             ints = [*idx.doc_base, idx.d_pad]
             if split:
                 _offs_h, offs_d, n_loc = self._doc_quantiles()
-                kw.update(quant=offs_d, n_loc=n_loc, split_p=p)
+                kw.update(quant=offs_d, n_loc=n_loc,
+                          split_p=builder.SPLIT_QUANTILES)
                 tables += offs_d
                 ints += n_loc
             if len(self.mesh.distinct) > 1:
@@ -1256,17 +1019,12 @@ class DistributedSearchEngine:
                                resident_key(tables, ints))
                 self._last_step = (step, inputs)
                 out = run_step(self._graphs, slot, key, step, inputs)
-        pm = (
-            (qidx, pno, int(pno.max()) + 1 if len(pno) else 1, n_rows_p)
-            if split
-            else None
-        )
-        return out, idxs, pm, nq, k
+        return out, idxs, piece_map(cols, qidx, pno, rows_p.shape[0]), nq, k
 
     def _collect(self, fut):
         """Force the one device->host read of a dispatched batch and
         assemble (ids, scores); a split query's doc-disjoint pieces
-        merge by (score desc, gid asc) on the host."""
+        merge by (score desc, gid asc) on the host (merge_pieces)."""
         out, idxs, pm, nq, k = fut
         n_rows = nq if pm is None else pm[3]
         v = np.full((n_rows, k), -1, np.int64)
@@ -1278,17 +1036,5 @@ class DistributedSearchEngine:
             g[idx_q] = host[off : off + len(idx_q), k:]
             off += bq
         if pm is not None:
-            # pieces are doc-disjoint within every shard, so the merge of
-            # their top-ks IS the unsplit ranking
-            qidx, pno, mmax, _n = pm
-            if mmax > 1:
-                pv = np.full((nq, mmax * k), -1, np.int64)
-                pg = np.full((nq, mmax * k), -1, np.int64)
-                pv.reshape(nq, mmax, k)[qidx, pno] = v
-                pg.reshape(nq, mmax, k)[qidx, pno] = g
-                order = np.lexsort((pg, -pv), axis=-1)[:, :k]
-                v = np.take_along_axis(pv, order, axis=1)
-                g = np.take_along_axis(pg, order, axis=1)
-                g = np.where(v > 0, g, -1)
-                v = np.where(v > 0, v, -1)
+            v, g = merge_pieces(v, g, pm, nq, k)
         return g[:nq], v[:nq]

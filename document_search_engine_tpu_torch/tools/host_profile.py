@@ -108,12 +108,12 @@ def main(device=None, env=None) -> dict:
     engine_mod._batch_step = fake_step
     try:
         # converge the plan cache (and capture the dummy's graph) first
-        eng._collect(eng._dispatch(pre[0], pre[1], k, pre[2], pre[3]))
+        eng._collect(eng._dispatch(pre, k))
         best_di = best_co = float("inf")
         prof.reset()
         for _ in range(iters):
             t0 = time.perf_counter()
-            fut = eng._dispatch(pre[0], pre[1], k, pre[2], pre[3])
+            fut = eng._dispatch(pre, k)
             t1 = time.perf_counter()
             eng._collect(fut)
             t2 = time.perf_counter()
@@ -126,8 +126,7 @@ def main(device=None, env=None) -> dict:
             pr = cProfile.Profile()
             pr.enable()
             for _ in range(4):
-                eng._collect(eng._dispatch(pre[0], pre[1], k, pre[2],
-                                           pre[3]))
+                eng._collect(eng._dispatch(pre, k))
             pr.disable()
             s = io.StringIO()
             st = pstats.Stats(pr, stream=s).sort_stats("cumulative")

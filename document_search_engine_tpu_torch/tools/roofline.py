@@ -442,9 +442,8 @@ def dispatch_calls(eng, tokens_by_row, rows, tpq) -> list:
     try:
         eng.scorer, eng.split_rows, eng.block_families = "fused", None, None
         eng.plan_min_blocks, eng.plan_cache = 4, PlanLayoutCache()
-        slot_h, coeff, rows_g, found_g = engine_batch(eng, tokens_by_row,
-                                                      rows, tpq)
-        eng._collect(eng._dispatch(slot_h, coeff, K, rows_g, found_g))
+        eng._collect(eng._dispatch(
+            engine_batch(eng, tokens_by_row, rows, tpq), K))
         step, inputs = eng._last_step
         return bucket_calls(step, inputs, eng.device)
     finally:

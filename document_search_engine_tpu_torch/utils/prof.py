@@ -22,11 +22,15 @@ Port of `document_search_engine_tpu/utils/prof.py`:
   "kernel" are the device's kernels, with start and duration in
   microseconds.
 
-What the engine records (engine/engine.py): `build.analyze`
-(SearchEngine.add_docs), `search.analyze` and `search.score`
-(SearchEngine.search), as the JAX engine does; and, where the engine
-keeps step graphs (on the card; engine/step_graph.py dispatch_span), the
-serving path's spans, one of each a batch of a search_stream:
+This is the one list of what the engines record; engine/engine.py
+points here. `build.analyze` (SearchEngine.add_docs), `search.analyze`
+and `search.score` (SearchEngine.search; the sharded engine records
+neither, as in the reference), as the JAX engine does; and, where an
+engine keeps step graphs (on the card; engine/step_graph.py
+dispatch_span), the serving path's spans, one of each a batch of a
+search_stream (the path both engines share, engine/engine.py
+ServingEngine; DistributedSearchEngine's own `_collect` records no
+collect.* span):
 
     stream.analyze         analysis worker  frontend.analyze_rows
     stream.wait_analysis   main             the wait for that analysis
@@ -47,7 +51,7 @@ buckets that the tiled kernels serve (ops/tiled.py tiled_route),
 `step.segment_merge_queries`, the batch's queries where it runs over
 several segments (else 0), and `step.device_merge_queries`, the same
 where the step merges the segments on the device (else 0); all counted
-under dispatch.plan.
+under SearchEngine's dispatch.plan (the sharded engine counts none).
 
 The registry is shared by threads (search_stream's analysis runs on a
 worker while the main thread dispatches), so every update and read of

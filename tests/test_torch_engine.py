@@ -19,7 +19,11 @@ from document_search_engine_tpu.engine.engine import (
     SearchEngine as RefEngine,
 )
 from document_search_engine_tpu.oracle import OracleEngine
-from document_search_engine_tpu_torch import SearchEngine
+from document_search_engine_tpu_torch import (
+    DistributedSearchEngine,
+    SearchEngine,
+    make_mesh,
+)
 from document_search_engine_tpu_torch import config as port_config
 from document_search_engine_tpu_torch.index.convert import (
     DEVICE_FIELDS,
@@ -160,6 +164,77 @@ def test_warmup_and_preplan_then_serve():
     ora.build(docs)
     _assert_same(eng.search(queries), ora.search(queries), "after warmup")
     assert eng.plan_cache.grows >= grows
+
+
+def _engine(kind):
+    if kind == "single":
+        return SearchEngine(device="cpu")
+    return DistributedSearchEngine(mesh=make_mesh(2, device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["single", "sharded"])
+def test_stream_reanalyzes_what_a_mutation_outdated(kind):
+    """search_stream at depth 2 over a batch source that deletes and adds
+    documents (some with new terms, which shift the vocabulary's rows)
+    between batches: each batch's answer is search's on the engine as it
+    stood when the batch was dispatched (a twin engine taken through the
+    same mutations), so an analysis prefetched against an older index is
+    made again. Both engines share this rule. Then warmup without
+    queries dispatches one synthetic batch and leaves search unchanged."""
+    docs, queries = _toy(seed=21, n_docs=90)
+    new_docs = [f"zzqnew{i} {d}" for i, d in enumerate(docs[:6])]
+    batches = [queries[i : i + 4] + ["zzqnew1 zzqnew4"]
+               for i in range(0, 20, 4)]
+    mutations = [
+        lambda e: e.delete_docs([1, 2, 50]),
+        lambda e: e.add_docs(new_docs[:3]),
+        lambda e: e.delete_docs([60, 91]),
+        lambda e: e.add_docs(new_docs[3:]),
+    ]
+    eng = _engine(kind)
+    eng.scorer = "fused"
+    eng.build(docs)
+    applied = [0]
+
+    def source():
+        for i, batch in enumerate(batches):
+            yield batch
+            if i < len(mutations):
+                mutations[i](eng)
+                applied[0] += 1
+
+    versions = []  # per dispatch: the mutations applied by then
+    dispatch, analyze = eng._dispatch, eng.frontend.analyze_rows
+    n_analyses = [0]
+
+    def recording(analysis, k):
+        versions.append(applied[0])
+        return dispatch(analysis, k)
+
+    def counting(queries, stats):
+        n_analyses[0] += 1
+        return analyze(queries, stats)
+
+    eng._dispatch, eng.frontend.analyze_rows = recording, counting
+    got = list(eng.search_stream(source(), k=10, depth=2))
+    assert applied[0] == len(mutations) and len(got) == len(batches)
+    assert n_analyses[0] > len(batches)  # some batch was analyzed again
+    twin = _engine(kind)
+    twin.scorer = "fused"
+    twin.build(docs)
+    done = 0
+    for batch, version, answer in zip(batches, versions, got):
+        for mutate in mutations[done:version]:
+            mutate(twin)
+        done = version
+        _assert_same(answer, twin.search(batch, k=10),
+                     f"{kind} after {version} mutations")
+    for mutate in mutations[done:]:
+        mutate(twin)
+    eng.warmup(nq=64)
+    assert len(versions) == len(batches) + 1
+    _assert_same(eng.search(queries, k=10), twin.search(queries, k=10),
+                 f"{kind} after warmup")
 
 
 def test_add_docs_past_compaction_bound_compacts():

@@ -352,8 +352,7 @@ def test_step_tiled_pairs_is_the_heavy_buckets_pairs(monkeypatch, scorer,
     eng.scorer, eng.split_rows = scorer, split_rows
     eng._graphs = StepGraphs("cpu", capturer=fake_capture)
     prof.reset()
-    slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(qs, eng.stats)
-    eng._collect(eng._dispatch(slot_h, coeff, 10, rows_g, found_g))
+    eng._collect(eng._dispatch(eng.frontend.analyze_rows(qs, eng.stats), 10))
     pairs, tiled = prof.total("step.pairs"), prof.total("step.tiled_pairs")
     prof.reset()
     # the warm-up and the capture each ran the step once

@@ -262,8 +262,6 @@ def test_split_engine_matches_oracle_and_reference(kind, split_rows):
     np.testing.assert_array_equal(np.concatenate([g[1] for g in got]),
                                   want[1])
     # queries did split: some segment's plan rows are pieces
-    slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
-        queries, eng.stats)
-    fut = eng._dispatch(slot_h, coeff, 10, rows_g, found_g)
+    fut = eng._dispatch(eng.frontend.analyze_rows(queries, eng.stats), 10)
     assert any(pm is not None and pm[2] > 1 for pm in fut[2])
     assert eng.plan_cache.hits >= 1

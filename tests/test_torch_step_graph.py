@@ -337,9 +337,7 @@ def test_split_gather_rounds_to_256_and_the_replayer_reruns_the_batch():
     eng = _graphed(SearchEngine(device="cpu"))
     eng.build(docs)
     eng.scorer, eng.split_rows = "fused", 1
-    slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
-        queries, eng.stats)
-    fut = eng._dispatch(slot_h, coeff, 10, rows_g, found_g)
+    fut = eng._dispatch(eng.frontend.analyze_rows(queries, eng.stats), 10)
     out = fut[0]
     n_pieces = sum(len(idx) for idxs in fut[1] for idx, _bq in idxs)
     assert out.shape[0] == -(-n_pieces // 256) * 256 > n_pieces

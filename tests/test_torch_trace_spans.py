@@ -203,9 +203,7 @@ def test_step_pairs_is_the_roofline_count(scorer, split_rows):
     want = _roofline_pairs(docs, queries)
     assert want > 0
     prof.reset()
-    slot_h, coeff, rows_g, found_g = eng.frontend.analyze_rows(
-        queries, eng.stats)
-    fut = eng._dispatch(slot_h, coeff, 10, rows_g, found_g)
+    fut = eng._dispatch(eng.frontend.analyze_rows(queries, eng.stats), 10)
     assert prof.total("step.pairs") == want
     split = any(pm is not None and pm[2] > 1 for pm in fut[2])
     assert split == (split_rows is not None)
